@@ -4,8 +4,9 @@ with hand-written CUDA kernels for NVIDIA Hopper.
 The PyTorch port of ``control_tpu`` (JAX, with Pallas kernels for the TPU),
 which stays beside it as the reference.  Structured-mesh FEM with batched
 matrix-free element kernels, Krylov solvers, geometric multigrid and the
-reference's block KKT preconditioners.  Tensors live on the device of the
-mesh they derive from (``UnitSquareMesh(..., device="cuda")``).
+reference's block KKT preconditioners, on 2-D and 3-D meshes.  Tensors
+live on the device of the mesh they derive from; meshes go to the CUDA
+card unless the caller asks for the CPU (``UnitCubeMesh(..., device="cpu")``).
 
 Public surface mirrors the reference:
 

@@ -64,27 +64,37 @@ __device__ __forceinline__ double2 f_rdiv(double2 a, double s) {
     return make_double2(a.x / s, a.y / s);
 }
 
-// y(iy, ix) = sum_k w[k](iy, ix) * x(iy + dy_k, ix + dx_k), zero outside
-// the grid; offsets k run (dy, dx) lexicographically over [-D, D]^2, the
-// order of stencil_offsets() in ops/stencil.py.  w points at the first of
-// the K = (2D+1)^2 weight planes of this batch entry, x at its field plane.
-template <int D, typename V>
+// y(iz, iy, ix) = sum_k w[k](iz, iy, ix) * x(iz + dz_k, iy + dy_k, ix + dx_k),
+// zero outside the grid; offsets k run ([dz,] dy, dx) lexicographically
+// over [-D, D]^ND, the order of stencil_offsets() in ops/stencil.py.  A
+// 2-D grid is the case ND = 2, nz = 1, iz = 0 (no z offsets).  w points at
+// the first of the K = (2D+1)^ND weight volumes of this batch entry, x at
+// its field volume.
+template <int ND, int D, typename V>
 __device__ __forceinline__ V stencil_at(const V* __restrict__ w,
-                                        const V* __restrict__ x,
-                                        int iy, int ix, int ny, int nx) {
-    const size_t plane = (size_t)ny * nx;
-    const size_t node = (size_t)iy * nx + ix;
+                                        const V* __restrict__ x, int iz,
+                                        int iy, int ix, int nz, int ny,
+                                        int nx) {
+    // ND = 2 compiles to the plain 2-D stencil: one plane, no z terms
+    constexpr int DZ = ND == 3 ? D : 0;
+    const size_t vol = (size_t)(ND == 3 ? nz : 1) * ny * nx;
+    const size_t node = ((size_t)(ND == 3 ? iz : 0) * ny + iy) * nx + ix;
     V acc = f_zero(V());
     int k = 0;
 #pragma unroll
-    for (int dy = -D; dy <= D; ++dy) {
-        const int y = iy + dy;
+    for (int dz = -DZ; dz <= DZ; ++dz) {
+        const int z = (ND == 3 ? iz : 0) + dz;
 #pragma unroll
-        for (int dx = -D; dx <= D; ++dx, ++k) {
-            const int xx = ix + dx;
-            if (y >= 0 && y < ny && xx >= 0 && xx < nx) {
-                acc = f_add(acc, f_mul(w[k * plane + node],
-                                       x[(size_t)y * nx + xx]));
+        for (int dy = -D; dy <= D; ++dy) {
+            const int y = iy + dy;
+#pragma unroll
+            for (int dx = -D; dx <= D; ++dx, ++k) {
+                const int xx = ix + dx;
+                if ((ND == 2 || (z >= 0 && z < nz)) && y >= 0 && y < ny &&
+                    xx >= 0 && xx < nx) {
+                    acc = f_add(acc, f_mul(w[k * vol + node],
+                                           x[((size_t)z * ny + y) * nx + xx]));
+                }
             }
         }
     }

@@ -1,17 +1,24 @@
-// K1: node-stencil operator application y[b] = sum_k w[b|0, k] * shift_k(x[b]).
+// K1 (2-D) and K6 (3-D): node-stencil operator application
+// y[b] = sum_k w[b|0, k] * shift_k(x[b]).
 //
-// Replaces control_tpu/ops/stencil.py:_pallas_kernel (via apply_stencil),
-// the TPU kernel that streams a zero-padded source plane and all K weight
-// planes of a batch entry through VMEM in one grid step.
+// K1 replaces control_tpu/ops/stencil.py:_pallas_kernel (via apply_stencil),
+// the TPU kernel that streams a zero-padded source plane and all K = 9
+// weight planes of a batch entry through VMEM in one grid step.  K6
+// replaces control_tpu/ops/stencil.py:_pallas_kernel_3d (via
+// _apply_3d_pallas), which keeps the padded source volume in VMEM and
+// streams the K = 27 weight planes of one output z-plane per grid step,
+// from weights reshuffled z-major for its BlockSpec.  Here the weights are
+// read as (nw, K, nz, ny, nx) directly: no reshuffle, no padded copy.
 //
 // Bound on the H100: device-memory bandwidth.  Each output node reads its K
-// weights once (K = 9 planes for Q1, no reuse) plus K neighbouring sources
-// and writes one value; the neighbours are shared by adjacent threads and
-// come from L1/L2, so the traffic is about (K + 2) values per node at
-// 2 flops per weight.  The design follows: one thread per output node,
-// neighbouring threads on neighbouring x, zero padding by bounds checks
-// (no padded copy of x is made), and the batch on gridDim.z.  A shared
-// weight set (w batch stride 0) serves every batch entry.
+// weights once (no reuse within a call) plus K neighbouring sources and
+// writes one value; the neighbours are shared by adjacent threads and come
+// from L1/L2, so the traffic is about (K + 2) values per node at 2 flops
+// per weight.  The design follows: one thread per output node, neighbouring
+// threads on neighbouring x (coalesced), zero padding by bounds checks, a
+// (32, 8) tile of one (y, x) plane per block, and (batch, z) on gridDim.z.
+// A shared weight set (w batch stride 0) serves every batch entry, and is
+// then re-read from L2 by each.
 
 #include <cuda_runtime.h>
 
@@ -22,33 +29,41 @@ namespace {
 constexpr int BX = 32;
 constexpr int BY = 8;
 
-template <int D, typename V>
+template <int ND, int D, typename V>
 __global__ void stencil_apply_kernel(const V* __restrict__ w,
                                      long long w_bstride,
                                      const V* __restrict__ x,
-                                     V* __restrict__ y, int ny, int nx) {
+                                     V* __restrict__ y, int nz, int ny,
+                                     int nx) {
     const int ix = blockIdx.x * BX + threadIdx.x;
     const int iy = blockIdx.y * BY + threadIdx.y;
     if (ix >= nx || iy >= ny) return;
-    const size_t plane = (size_t)ny * nx;
-    const size_t b = blockIdx.z;
-    y[b * plane + (size_t)iy * nx + ix] = stencil_at<D>(
-        w + b * (size_t)w_bstride, x + b * plane, iy, ix, ny, nx);
+    // (batch, z) on gridDim.z; a 2-D grid has no z (nz = 1)
+    const int iz = ND == 3 ? (int)(blockIdx.z % nz) : 0;
+    const size_t b = ND == 3 ? blockIdx.z / nz : blockIdx.z;
+    const size_t vol = (size_t)(ND == 3 ? nz : 1) * ny * nx;
+    y[b * vol + ((size_t)iz * ny + iy) * nx + ix] = stencil_at<ND, D>(
+        w + b * (size_t)w_bstride, x + b * vol, iz, iy, ix, nz, ny, nx);
 }
 
 template <typename V>
 int launch_apply(const void* w, long long w_bstride, const void* x, void* y,
-                 int n, int ny, int nx, int degree, cudaStream_t stream) {
-    if (n < 1 || n > 65535 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+                 int n, int nz, int ny, int nx, int nd, int degree,
+                 cudaStream_t stream) {
+    if (n < 1 || nz < 1 || ny < 1 || nx < 1 || (long long)n * nz > 65535 ||
+        (nd == 2 && nz != 1))
+        return (int)cudaErrorInvalidValue;
     const dim3 block(BX, BY);
-    const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY, n);
+    const dim3 grid((nx + BX - 1) / BX, (ny + BY - 1) / BY, n * nz);
     const V* wv = static_cast<const V*>(w);
     const V* xv = static_cast<const V*>(x);
     V* yv = static_cast<V*>(y);
-    if (degree == 1) {
-        stencil_apply_kernel<1, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, ny, nx);
-    } else if (degree == 2) {
-        stencil_apply_kernel<2, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, ny, nx);
+    if (nd == 2 && degree == 1) {
+        stencil_apply_kernel<2, 1, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
+    } else if (nd == 2 && degree == 2) {
+        stencil_apply_kernel<2, 2, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
+    } else if (nd == 3 && degree == 1) {
+        stencil_apply_kernel<3, 1, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
     } else {
         return (int)cudaErrorInvalidValue;
     }
@@ -57,16 +72,18 @@ int launch_apply(const void* w, long long w_bstride, const void* x, void* y,
 
 }  // namespace
 
-// dtype codes: 0 float32, 1 float64, 2 complex64, 3 complex128
+// dtype codes: 0 float32, 1 float64, 2 complex64, 3 complex128.
+// Fields are (n, nz, ny, nx), with nz = 1 for nd = 2; weights (nw, K, nz,
+// ny, nx) with batch stride w_bstride (0: shared).
 extern "C" int stencil_apply(int dtype, const void* w, long long w_bstride,
-                             const void* x, void* y, int n, int ny, int nx,
-                             int degree, void* stream) {
+                             const void* x, void* y, int n, int nz, int ny,
+                             int nx, int nd, int degree, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (dtype) {
-        case 0: return launch_apply<float>(w, w_bstride, x, y, n, ny, nx, degree, s);
-        case 1: return launch_apply<double>(w, w_bstride, x, y, n, ny, nx, degree, s);
-        case 2: return launch_apply<float2>(w, w_bstride, x, y, n, ny, nx, degree, s);
-        case 3: return launch_apply<double2>(w, w_bstride, x, y, n, ny, nx, degree, s);
+        case 0: return launch_apply<float>(w, w_bstride, x, y, n, nz, ny, nx, nd, degree, s);
+        case 1: return launch_apply<double>(w, w_bstride, x, y, n, nz, ny, nx, nd, degree, s);
+        case 2: return launch_apply<float2>(w, w_bstride, x, y, n, nz, ny, nx, nd, degree, s);
+        case 3: return launch_apply<double2>(w, w_bstride, x, y, n, nz, ny, nx, nd, degree, s);
         default: return (int)cudaErrorInvalidValue;
     }
 }

@@ -1,4 +1,4 @@
-"""Structured 2-D meshes.
+"""Structured 2-D and 3-D meshes.
 
 The TPU rebuild restricts the reference's arbitrary Firedrake meshes to
 uniform structured rectangle meshes -- which covers every mesh used by the
@@ -8,7 +8,8 @@ layout is what makes matrix-free, batched element kernels and geometric
 multigrid possible on an accelerator.
 
 Every mesh carries the torch ``dtype`` and ``device`` of the tensors derived
-from it (function data, assembled operators, multigrid hierarchies).
+from it (function data, assembled operators, multigrid hierarchies).  The
+device defaults to the CUDA card; the CPU is used only when asked for.
 """
 
 import numpy as np
@@ -18,8 +19,17 @@ from ..config import default_dtype, as_torch_dtype
 
 
 def _mesh_dtype_device(dtype, device):
+    """The mesh's dtype and device.  The card is the default device: with
+    ``device=None`` and no CUDA device this raises rather than carry on on
+    the CPU, which a caller asks for with ``device="cpu"``."""
     dt = default_dtype() if dtype is None else as_torch_dtype(dtype)
-    return dt, torch.device("cpu" if device is None else device)
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: meshes live on the card by default; pass "
+                "device=\"cpu\" to build one on the CPU")
+        device = "cuda"
+    return dt, torch.device(device)
 
 
 class StructuredMesh2D:

@@ -51,7 +51,7 @@ class BlockSolver:
             return self.config.apply(self.params, b, cycles=self.kind[1])
         if self.kind[0] == "cheb":
             # the krylov.chebyshev recurrence as one fused smoothing call
-            # (kernel K2 on the card)
+            # (kernel K2 on the card; K5 in 3-D)
             _, bounds, iters = self.kind
             theta = 0.5 * (bounds[1] + bounds[0])
             delta = 0.5 * (bounds[1] - bounds[0])

@@ -8,7 +8,8 @@ Crank-Nicolson T1/T2 symmetrisation is a pair of (alternating-)cumsums.
 
 The built-in preconditioner reproduces the reference's recipe
 (control/control.py:1943-2440): block-(1,1) mass solves vectorised over all
-time blocks at once (kernel K2), and a matching-Schur approximation
+time blocks at once (kernel K2; K5 on 3-D meshes), and a matching-Schur
+approximation
 
     S ~ (L + c M) M^{-1} (L^T + c M),   c = 0.5 tau / sqrt(beta)
 
@@ -16,7 +17,9 @@ whose forward/backward block substitutions run either exactly, one time
 block after another with one multigrid V-cycle each ("scan", the default),
 or all at once by ParaDiag: an alpha-circulant approximation diagonalised
 by a time-axis DFT, with one batched complex V-cycle over the frequencies
-(kernel K3) and a defect correction (kernel K1).
+(kernel K3; K5 in 3-D) and a defect correction (kernel K1; K6 in 3-D).
+Everything is dimension-generic: the same code runs Q1 quadrilaterals and
+hexahedra.
 """
 
 import numpy as np
@@ -70,7 +73,7 @@ def _probe_form_dependence(form_fn, space, coeff_space, t_samples):
 
 def _fast_stack_applier(space, A):
     """Batched stacked-operator application via the node-stencil path
-    (kernel K1 on the card)."""
+    (kernel K1 on the card; K6 in 3-D)."""
     w = node_stencil(A, space)
     d, nd = space.degree, space.ndim
     return lambda x: apply_stencil(w, x, d, nd=nd)
@@ -80,8 +83,8 @@ class _SweepSolver:
     """Sequential solve of a block lower-bidiagonal system
     u_i = V-cycle_i(b_i - S_i u_{i-1}), one time block after another, with
     per-time-block multigrid hierarchies built once (batched when the
-    blocks differ).  The sub-diagonal action is a node stencil (K1), the
-    V-cycle smoothing real (K2)."""
+    blocks differ).  The sub-diagonal action is a node stencil (K1; K6 in
+    3-D), the V-cycle smoothing real (K2; K5 in 3-D)."""
 
     def __init__(self, space, mask, diag_A, sub_A, cycles=1, state=None):
         self.space, self.mask, self.cycles = space, mask, cycles
@@ -93,7 +96,7 @@ class _SweepSolver:
         else:
             self.params = self.config.build(diag_A[0] if self.shared
                                             else diag_A)
-            self.sub = node_stencil(sub_A, space)      # (m|1, K, ny, nx)
+            self.sub = node_stencil(sub_A, space)      # (m|1, K, *grid)
         self.state = {"params": self.params, "sub": self.sub}
 
     def solve(self, b, reverse=False):

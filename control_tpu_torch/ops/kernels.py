@@ -97,12 +97,13 @@ def library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()[0]))
         vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        # (..., n, nz, ny, nx, nd, degree[, steps], stream)
         lib.stencil_apply.argtypes = [i32, vp, i64, vp, vp, i32, i32, i32,
-                                      i32, vp]
+                                      i32, i32, i32, vp]
         lib.stencil_apply.restype = i32
         lib.cheb_smooth.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp,
                                     i32, vp, vp, vp, vp, i32, i32, i32, i32,
-                                    i32, vp]
+                                    i32, i32, i32, vp]
         lib.cheb_smooth.restype = i32
         _lib = lib
     return _lib

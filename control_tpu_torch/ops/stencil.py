@@ -1,25 +1,26 @@
 """Node-stencil (DIA-format) operator application.
 
 A scalar Lagrange operator on a structured mesh is, at node level, a
-(2d+1)^2-point stencil with per-node weights.  Folding the per-cell local
+(2d+1)^nd-point stencil with per-node weights.  Folding the per-cell local
 matrices (and the Dirichlet row/column elimination) into a weight tensor
 
-    w : (*batch, K, ny, nx),   K = (2d+1)^2
+    w : (*batch, K, *grid),   K = (2d+1)^nd,  grid = ([nz,] ny, nx)
 
-turns operator application into K shifted multiply-adds.  Three hand-written
+turns operator application into K shifted multiply-adds.  Hand-written
 CUDA kernels (``control_tpu_torch/csrc``) carry the hot operations of the
 preconditioner on the card:
 
-* K1 ``apply_stencil``: one operator application;
-* K2 ``fused_cheb_smooth`` on real fields: Chebyshev-Jacobi smoothing plus
-  the final residual (mass solves, real V-cycles);
-* K3 ``fused_cheb_smooth`` on complex fields: the same recurrence for the
-  ParaDiag frequency blocks.
+* K1 (2-D) and K6 (3-D) ``apply_stencil``: one operator application;
+* K2 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on real fields:
+  Chebyshev-Jacobi smoothing plus the final residual (mass solves, real
+  V-cycles);
+* K3 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on complex fields: the same
+  recurrence for the ParaDiag frequency blocks.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs the
 plain PyTorch version beside it (``_apply_plain``, ``_cheb_plain``), a CUDA
 tensor launches the kernel or raises.  ``launch_counts`` counts the kernel
-launches of each wrapper.
+launches of each wrapper, per kernel.
 """
 
 import itertools
@@ -29,9 +30,11 @@ import torch
 
 from . import kernels
 
-# kernel launches per wrapper (one per call that reaches the card)
+# kernel launches per wrapper (one per call that reaches the card): K1,
+# K2, K3 on 2-D grids, K6 and K5 (real, complex) on 3-D grids
 launch_counts = {"stencil_apply": 0, "cheb_smooth_real": 0,
-                 "cheb_smooth_complex": 0}
+                 "cheb_smooth_complex": 0, "stencil_apply_3d": 0,
+                 "cheb_smooth_3d_real": 0, "cheb_smooth_3d_complex": 0}
 
 
 def reset_launch_counts():
@@ -99,7 +102,7 @@ def node_stencil(A, space, mask=None, alpha=1.0):
 
 
 # ---------------------------------------------------------------------------
-# application (K1)
+# application (K1, K6)
 # ---------------------------------------------------------------------------
 
 def _is_vector_stencil(w, nd=2):
@@ -108,7 +111,7 @@ def _is_vector_stencil(w, nd=2):
 
 
 def _apply_plain(w, x, degree, nd=2):
-    """Plain PyTorch K1: zero-pad x, then K shifted multiply-adds (the
+    """Plain PyTorch K1/K6: zero-pad x, then K shifted multiply-adds (the
     reference's ``_apply_xla``; dimension-generic, scalar stencils)."""
     d = degree
     grid = x.shape[-nd:]
@@ -123,45 +126,62 @@ def _apply_plain(w, x, degree, nd=2):
     return out
 
 
-def _require_cuda_2d(w, nd, what):
-    if nd != 2 or _is_vector_stencil(w, nd):
+def _cuda_grid(w, x, degree, nd, what):
+    """Checks shared by the CUDA wrappers: a scalar stencil of degree 1 or
+    2 in 2-D, degree 1 in 3-D (the kernels built), one dtype and device,
+    weights (K, *grid) or (nw, K, *grid).  Returns the grid shape."""
+    if nd not in (2, 3) or _is_vector_stencil(w, nd):
         raise NotImplementedError(
-            f"{what}: only 2-D scalar stencils have a CUDA kernel")
+            f"{what}: only scalar 2-D and 3-D stencils have a CUDA kernel")
+    if degree not in ((1, 2) if nd == 2 else (1,)):
+        raise NotImplementedError(
+            f"{what}: no CUDA kernel for degree {degree} in {nd}-D")
+    if w.dtype != x.dtype or w.device != x.device:
+        raise TypeError(f"{what}: w and the fields need one dtype and "
+                        "device")
+    grid = tuple(x.shape[-nd:])
+    if (tuple(w.shape[-nd:]) != grid
+            or w.shape[-(nd + 1)] != (2 * degree + 1) ** nd):
+        raise ValueError(f"{what}: weight shape mismatch")
+    return grid
 
 
 def _batch_layout(w, lead, grid):
     """Broadcast batch shape, batch size and weight batch stride (0 for
     shared weights) of leading field axes ``lead`` against weights
     (K, *grid) or (nw, K, *grid)."""
-    wlead = tuple(w.shape[:-3])
+    nd = len(grid)
+    wlead = tuple(w.shape[:-(nd + 1)])
     bshape = torch.broadcast_shapes(wlead, lead)
     n = math.prod(bshape)
     nw = math.prod(wlead)
     if nw not in (1, n):
         raise ValueError("stencil batch mismatch")
-    plane = grid[0] * grid[1]
-    K = w.shape[-3]
-    return bshape, n, (K * plane if nw == n and n > 1 else 0)
+    K = w.shape[-(nd + 1)]
+    return bshape, n, (K * math.prod(grid) if nw == n and n > 1 else 0)
+
+
+def _zyx(grid):
+    """(nz, ny, nx) of a 2-D (nz = 1) or 3-D grid."""
+    return (1,) * (3 - len(grid)) + tuple(grid)
 
 
 def _apply_cuda(w, x, degree, nd):
-    _require_cuda_2d(w, nd, "apply_stencil")
-    if w.dtype != x.dtype or w.device != x.device:
-        raise TypeError("apply_stencil: w and x need one dtype and device")
-    grid = tuple(x.shape[-2:])
-    if tuple(w.shape[-2:]) != grid or w.shape[-3] != (2 * degree + 1) ** 2:
-        raise ValueError("apply_stencil: weight shape mismatch")
-    bshape, n, w_bs = _batch_layout(w, tuple(x.shape[:-2]), grid)
+    grid = _cuda_grid(w, x, degree, nd, "apply_stencil")
+    if nd == 3 and x.is_complex():
+        raise NotImplementedError(
+            "apply_stencil: no path applies a complex 3-D stencil")
+    bshape, n, w_bs = _batch_layout(w, tuple(x.shape[:-nd]), grid)
     wc = w.contiguous()
     xc = x.expand(bshape + grid).contiguous()
     y = torch.empty(bshape + grid, dtype=x.dtype, device=x.device)
     lib = kernels.library()
     code = lib.stencil_apply(
         kernels.DTYPE_CODES[x.dtype], wc.data_ptr(), w_bs, xc.data_ptr(),
-        y.data_ptr(), max(n, 1), grid[0], grid[1], degree,
+        y.data_ptr(), max(n, 1), *_zyx(grid), nd, degree,
         kernels.stream_ptr(x.device))
     kernels.check(code, "stencil_apply")
-    launch_counts["stencil_apply"] += 1
+    launch_counts["stencil_apply_3d" if nd == 3 else "stencil_apply"] += 1
     return y
 
 
@@ -170,8 +190,8 @@ def apply_stencil(w, x, degree, nd=2):
 
     w: (K, *grid) or (n, K, *grid); x: (*grid) or (n, *grid) -- the batch
     dims broadcast (shared weights across a time batch are fine).  A CUDA
-    tensor runs kernel K1 (2-D scalar stencils); a CPU tensor runs
-    ``_apply_plain``.
+    tensor runs kernel K1 (2-D scalar stencils) or K6 (3-D, real, degree
+    1); a CPU tensor runs ``_apply_plain``.
     """
     if x.is_cuda:
         return _apply_cuda(w, x, degree, nd)
@@ -181,12 +201,12 @@ def apply_stencil(w, x, degree, nd=2):
 
 
 # ---------------------------------------------------------------------------
-# fused Chebyshev-Jacobi smoothing (K2 real, K3 complex)
+# fused Chebyshev-Jacobi smoothing (K2 real, K3 complex; K5 in 3-D)
 # ---------------------------------------------------------------------------
 
 def _expand_bound(s, b):
     """Reshape a scalar or per-batch (n,) Chebyshev bound so it broadcasts
-    against fields shaped (n, ny, nx) / (ny, nx)."""
+    against fields shaped (n, *grid) / (*grid)."""
     if not torch.is_tensor(s) or s.dim() == 0:
         return s
     return s.reshape(tuple(s.shape) + (1,) * (b.dim() - s.dim()))
@@ -209,8 +229,9 @@ def _round_weights(w, dinv, b, weight_dtype):
 
 def _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
                 want_residual=False, weight_dtype=None, nd=2):
-    """Plain PyTorch K2/K3: the reference's Chebyshev-Jacobi recurrence
-    (``fused_cheb_smooth(use_pallas=False)``), real or complex."""
+    """Plain PyTorch K2/K3/K5: the reference's Chebyshev-Jacobi recurrence
+    (``fused_cheb_smooth(use_pallas=False)``), real or complex, any
+    ``nd``."""
     d = degree
     if weight_dtype is not None:
         w, dinv = _round_weights(w, dinv, b, weight_dtype)
@@ -260,29 +281,25 @@ def _bound_vector(s, n, rdt, device):
 
 def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
                nd):
-    _require_cuda_2d(w, nd, "fused_cheb_smooth")
+    grid = _cuda_grid(w, b, degree, nd, "fused_cheb_smooth")
     dt = b.dtype
-    for t in (w, dinv, x0):
+    for t in (dinv, x0):
         if t.dtype != dt or t.device != b.device:
             raise TypeError("fused_cheb_smooth: w, dinv, b, x0 need one "
                             "dtype and device")
-    grid = tuple(b.shape[-2:])
-    if tuple(w.shape[-2:]) != grid or w.shape[-3] != (2 * degree + 1) ** 2:
-        raise ValueError("fused_cheb_smooth: weight shape mismatch")
-    if b.dim() not in (2, 3):
-        raise ValueError("fused_cheb_smooth: b must be (ny, nx) or "
-                         "(n, ny, nx)")
-    lead = tuple(b.shape[:-2])
+    if b.dim() not in (nd, nd + 1):
+        raise ValueError("fused_cheb_smooth: b must be (*grid) or "
+                         "(n, *grid)")
+    lead = tuple(b.shape[:-nd])
     bshape, n, w_bs = _batch_layout(w, lead, grid)
     if bshape != lead:
         raise ValueError("fused_cheb_smooth: weights batch exceeds b")
-    plane = grid[0] * grid[1]
-    # dinv: shared plane (stride 0) or one plane per batch entry
-    dlead = tuple(dinv.shape[:-2])
+    # dinv: shared volume (stride 0) or one volume per batch entry
+    dlead = tuple(dinv.shape[:-nd])
     if math.prod(dlead) == 1:
         dc, d_bs = dinv.reshape(grid).contiguous(), 0
     else:
-        dc, d_bs = dinv.expand(lead + grid).contiguous(), plane
+        dc, d_bs = dinv.expand(lead + grid).contiguous(), math.prod(grid)
     bc = b.contiguous()
     xc = x0.expand(lead + grid).contiguous()
     rdt = b.real.dtype if b.is_complex() else dt
@@ -302,10 +319,11 @@ def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
         dc.data_ptr(), d_bs, bc.data_ptr(), xc.data_ptr(), th.data_ptr(),
         de.data_ptr(), th_s, x_out.data_ptr(), x_tmp.data_ptr(),
         p.data_ptr(), None if r is None else r.data_ptr(), max(n, 1),
-        grid[0], grid[1], degree, int(steps), kernels.stream_ptr(b.device))
+        *_zyx(grid), nd, degree, int(steps), kernels.stream_ptr(b.device))
     kernels.check(code, "cheb_smooth")
-    launch_counts["cheb_smooth_complex" if b.is_complex()
-                  else "cheb_smooth_real"] += 1
+    kind = "complex" if b.is_complex() else "real"
+    launch_counts[f"cheb_smooth_3d_{kind}" if nd == 3
+                  else f"cheb_smooth_{kind}"] += 1
     return (x_out, r) if want_residual else x_out
 
 
@@ -314,13 +332,14 @@ def fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta, degree,
     """``steps`` Chebyshev-Jacobi smoothing iterations (+ optionally the
     final residual).
 
-    w: (K, ny, nx) or (n, K, ny, nx); dinv/b/x0: (ny, nx) or (n, ny, nx)
+    w: (K, *grid) or (n, K, *grid); dinv/b/x0: (*grid) or (n, *grid)
     (dinv and x0 broadcast to b); theta/delta: scalars or per-batch (n,)
-    vectors.  Real fields run kernel K2 on a CUDA tensor, complex fields
-    (the ParaDiag frequency blocks) kernel K3; CPU tensors run
-    ``_cheb_plain``.  ``weight_dtype`` (e.g. "bfloat16") rounds the weight
-    and diagonal planes through a narrower dtype; only the plain version
-    implements it.  Returns x (and r = b - A x).
+    vectors.  On a CUDA tensor, real fields run kernel K2 (2-D) or K5
+    (3-D), complex fields (the ParaDiag frequency blocks) K3 (2-D) or K5
+    (3-D); CPU tensors run ``_cheb_plain``.  ``weight_dtype`` (e.g.
+    "bfloat16") rounds the weight and diagonal planes through a narrower
+    dtype; only the plain version implements it.  Returns x (and
+    r = b - A x).
     """
     if b.is_cuda:
         if weight_dtype is not None:

@@ -6,12 +6,12 @@ box to every stiffness-like block (reference control/control.py:356-416,
 so:
 
 * prolongation  P  = per-coarse-cell tabulation of the coarse basis at fine
-  node positions (a dilated convolution for Q1),
+  node positions (a dilated 2-D or 3-D convolution for Q1),
 * restriction   R  = P^T (a strided convolution for Q1),
 * coarse operators by Galerkin RAP computed directly on per-cell local
   matrices,
-* Chebyshev-Jacobi smoothing (kernels K2/K3 on the card) with Gershgorin
-  bounds from the node stencils,
+* Chebyshev-Jacobi smoothing (kernels K2/K3 on the card, K5 on 3-D
+  grids) with Gershgorin bounds from the node stencils,
 * a dense inverse on the coarsest level.
 
 Hierarchies take leading batch axes on the fine local matrices: one
@@ -58,18 +58,19 @@ def _cell_prolongation(cell, degree, ndim=2):
 
 
 class Transfer:
-    """Grid transfer between a degree-1 quadrilateral space and its
-    coarsened mesh.
+    """Grid transfer between a degree-1 quadrilateral or hexahedral space
+    and its coarsened mesh.
 
     Interpolation is translation-invariant on a uniform mesh, so
     prolongation / restriction are one dilated / strided convolution with
-    the separable Q1 hat kernel (zero padding clips at the boundary)."""
+    the separable Q1 hat kernel, the outer power of (0.5, 1, 0.5) over the
+    grid axes (zero padding clips at the boundary)."""
 
     def __init__(self, fine_space):
         if (fine_space.degree != 1 or fine_space.dim is not None
-                or fine_space.ndim != 2 or fine_space.mesh.cell != "quad"):
+                or fine_space.mesh.cell not in ("quad", "hex")):
             raise NotImplementedError(
-                "only scalar 2-D Q1 transfers are ported yet")
+                "only scalar Q1 transfers (quad, hex) are ported yet")
         mesh_c = fine_space.mesh.coarsen()
         self.fine = fine_space
         self.ndim = fine_space.ndim
@@ -81,9 +82,15 @@ class Transfer:
         self._P_child = torch.as_tensor(Pk, dtype=dtype, device=dev)
         # separable Q1 hat kernel: coarse basis at fine-node offsets
         k1 = np.array([0.5, 1.0, 0.5])
-        self._kappa = torch.as_tensor(np.multiply.outer(k1, k1),
-                                      dtype=dtype, device=dev)
+        kap = k1
+        for _ in range(self.ndim - 1):
+            kap = np.multiply.outer(kap, k1)
+        self._kappa = torch.as_tensor(kap, dtype=dtype, device=dev)
         self._L = 1
+        if self.ndim == 3:
+            self._conv_fwd, self._conv_adj = F.conv3d, F.conv_transpose3d
+        else:
+            self._conv_fwd, self._conv_adj = F.conv2d, F.conv_transpose2d
 
     @staticmethod
     def _conv(fn, xb, k, **kw):
@@ -101,18 +108,18 @@ class Transfer:
 
     def prolong(self, xc):
         cg = self.coarse.grid_shape
-        batch = tuple(xc.shape[:xc.dim() - 2])
+        batch = tuple(xc.shape[:xc.dim() - self.ndim])
         xb = xc.reshape((-1, 1) + cg)
         # dilated conv == transposed conv with stride 2 (symmetric kernel)
-        out = self._conv(F.conv_transpose2d, xb, self._weights(xc),
+        out = self._conv(self._conv_adj, xb, self._weights(xc),
                          stride=2, padding=self._L)
         return out.reshape(batch + self.fine.grid_shape)
 
     def restrict(self, rf):
         fg = self.fine.grid_shape
-        batch = tuple(rf.shape[:rf.dim() - 2])
+        batch = tuple(rf.shape[:rf.dim() - self.ndim])
         rb = rf.reshape((-1, 1) + fg)
-        out = self._conv(F.conv2d, rb, self._weights(rf), stride=2,
+        out = self._conv(self._conv_fwd, rb, self._weights(rf), stride=2,
                          padding=self._L)
         return out.reshape(batch + self.coarse.grid_shape)
 
@@ -126,11 +133,11 @@ class Transfer:
             Af = A[..., None, :, :, :].expand(
                 batch + (nch, 1) + tuple(A.shape[-2:]))
         else:
-            cells = (mc.ny, mc.nx)
+            cells = (mc.nz, mc.ny, mc.nx) if nd == 3 else (mc.ny, mc.nx)
             inter = sum(((c, 2) for c in cells), ())
             A4 = A.reshape(batch + inter + tuple(A.shape[-2:]))
             nb = len(batch)
-            # regroup (c0,2,c1,2) -> (coarse cells..., children...)
+            # regroup (c0,2,c1,2[,c2,2]) -> (coarse cells..., children...)
             perm = (tuple(range(nb))
                     + tuple(nb + 2 * i for i in range(nd))
                     + tuple(nb + 2 * i + 1 for i in range(nd))
@@ -216,7 +223,8 @@ class MGConfig:
             diags.append(d)
             dinvs.append(1.0 / d)
             ratio = stencil_abs_rowsum(w, nd=sp_l.ndim) / torch.abs(d)
-            lams.append(torch.amax(ratio, dim=(-2, -1)))
+            lams.append(torch.amax(ratio,
+                                   dim=tuple(range(-sp_l.ndim, 0))))
         # coarsest solve as a precomputed dense inverse
         Ainv = _dense_inv(ops[-1].to_dense())
         return {"Ws": Ws, "diags": diags, "dinvs": dinvs,

@@ -1,8 +1,8 @@
 """Carry state from the JAX package into the port.
 
 Everything arrives as numpy arrays (or anything ``numpy.asarray`` takes)
-and leaves as tensors on a given device and dtype: a space's local
-matrices, and the preconditioner state of
+and leaves as tensors on the device and in the dtype of a target space:
+its local matrices, and the preconditioner state of
 ``Instationary.construct_pc(...).state`` (``solver_0`` / ``fwd`` / ``bwd``
 with ``Ws``, ``dinvs``, ``lams``, ``Ainv``, ``wF``, ``wS`` ...), which the
 port's ``construct_pc(..., prebuilt=state)`` accepts.  Complex leaves may
@@ -33,20 +33,21 @@ def to_tensor(x, device, dtype):
     return torch.as_tensor(a, dtype=dt, device=device)
 
 
-def to_torch(tree, device="cpu", dtype=torch.float64):
+def to_torch(tree, space):
     """Convert a nested dict / list / tuple of arrays, e.g. the reference's
-    ``construct_pc(...).state`` into the port's ``prebuilt=`` state."""
+    ``construct_pc(...).state`` into the port's ``prebuilt=`` state, on the
+    device and in the dtype of the target ``space`` (2-D or 3-D)."""
     if isinstance(tree, dict):
         if set(tree) == {_CKEY}:
             re, im = tree[_CKEY]
-            return to_tensor(np.asarray(re) + 1j * np.asarray(im), device,
-                             dtype)
-        return {k: to_torch(v, device, dtype) for k, v in tree.items()}
+            return to_tensor(np.asarray(re) + 1j * np.asarray(im),
+                             space.device, space.dtype)
+        return {k: to_torch(v, space) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device, dtype) for v in tree)
+        return type(tree)(to_torch(v, space) for v in tree)
     if tree is None:
         return None
-    return to_tensor(tree, device, dtype)
+    return to_tensor(tree, space.device, space.dtype)
 
 
 def local_op(A, space):

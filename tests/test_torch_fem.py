@@ -28,7 +28,8 @@ def close(a, b, tol=TOL):
 
 def spaces(nx, ny, quad, degree):
     mj = J.UnitSquareMesh(nx, ny, quadrilateral=quad, dtype="float64")
-    mt = T.UnitSquareMesh(nx, ny, quadrilateral=quad, dtype="float64")
+    mt = T.UnitSquareMesh(nx, ny, quadrilateral=quad, dtype="float64",
+                          device="cpu")
     return (J.FunctionSpace(mj, "Lagrange", degree),
             T.FunctionSpace(mt, "Lagrange", degree))
 
@@ -36,7 +37,8 @@ def spaces(nx, ny, quad, degree):
 @pytest.mark.parametrize("quad", [True, False])
 def test_mesh_matches(quad):
     mj = J.UnitSquareMesh(6, 4, quadrilateral=quad)
-    mt = T.UnitSquareMesh(6, 4, quadrilateral=quad, dtype=torch.float64)
+    mt = T.UnitSquareMesh(6, 4, quadrilateral=quad, dtype=torch.float64,
+                          device="cpu")
     assert (mt.nx, mt.ny, mt.cell, mt.n_cells) == (mj.nx, mj.ny, mj.cell,
                                                   mj.n_cells)
     assert mt.dtype == torch.float64 and mt.device == torch.device("cpu")
@@ -156,7 +158,8 @@ def test_convert_local_op():
 
 
 def test_function_containers_follow_the_mesh_device():
-    mt = T.UnitSquareMesh(3, 3, quadrilateral=True, dtype="float32")
+    mt = T.UnitSquareMesh(3, 3, quadrilateral=True, dtype="float32",
+                          device="cpu")
     st = T.FunctionSpace(mt, "Lagrange", 1)
     f = T.Function(st)
     mf = T.MixedFunction(st, 4)

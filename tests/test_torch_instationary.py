@@ -35,7 +35,8 @@ LAMBDA_V_BOUNDS = (0.25, 2.25)
 
 
 def heat_problem(mod, n, n_t, mode, forward=None):
-    mesh = mod.UnitSquareMesh(n, n, quadrilateral=True, dtype="float64")
+    mesh = mod.UnitSquareMesh(n, n, quadrilateral=True, dtype="float64",
+                              **({"device": "cpu"} if mod is T else {}))
     space = mod.FunctionSpace(mesh, "Lagrange", 1)
     X = mod.SpatialCoordinate(mesh)
 
@@ -142,7 +143,8 @@ def test_pc_application_with_carried_state(solved):
     mt, Dt, Mt = _pc_inputs(T, ct, t_combine)
     pc_j = cj.construct_pc(False, LAMBDA_V_BOUNDS, mj, Dj, Mj)
     state = convert.to_torch(jax.tree_util.tree_map(np.asarray,
-                                                    pc_j.state))
+                                                    pc_j.state),
+                             ct._space_v)
     pc_t = ct.construct_pc(False, LAMBDA_V_BOUNDS, mt, Dt, Mt,
                            prebuilt=state)
     n, n_t = CASES[mode]

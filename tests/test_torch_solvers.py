@@ -90,7 +90,8 @@ def test_gmres_maxiter_and_solve_krylov_names():
 
 def _spaces(n):
     mj = J.UnitSquareMesh(n, n, quadrilateral=True, dtype="float64")
-    mt = T.UnitSquareMesh(n, n, quadrilateral=True, dtype="float64")
+    mt = T.UnitSquareMesh(n, n, quadrilateral=True, dtype="float64",
+                          device="cpu")
     return J.FunctionSpace(mj, "Lagrange", 1), \
         T.FunctionSpace(mt, "Lagrange", 1)
 

@@ -51,7 +51,8 @@ def random_stencil(rng, shape, cplx=False):
 @pytest.mark.parametrize("masked", [True, False])
 def test_node_stencil(degree, alpha, masked):
     mj = J.UnitSquareMesh(5, 6, quadrilateral=True, dtype="float64")
-    mt = T.UnitSquareMesh(5, 6, quadrilateral=True, dtype="float64")
+    mt = T.UnitSquareMesh(5, 6, quadrilateral=True, dtype="float64",
+                          device="cpu")
     sj, st = J.FunctionSpace(mj, "Lagrange", degree), \
         T.FunctionSpace(mt, "Lagrange", degree)
 
@@ -211,7 +212,8 @@ def test_complex_cheb_plain_matches_tpu_kernel(shared_w, steps):
 
 
 def test_stencil_op_equals_masked_local_op():
-    mt = T.UnitSquareMesh(6, 5, quadrilateral=True, dtype="float64")
+    mt = T.UnitSquareMesh(6, 5, quadrilateral=True, dtype="float64",
+                          device="cpu")
     st = T.FunctionSpace(mt, "Lagrange", 1)
     u, v = T.TrialFunction(st), T.TestFunction(st)
     A = T.assemble(T.inner(T.grad(u), T.grad(v)) * T.dx
