@@ -13,9 +13,11 @@ which raises (and the script exits non-zero) on failure:
 3. holds each kernel against its plain PyTorch version on the card, on
    inputs made from a numpy seed at the shapes of the path that runs it,
    in float64 (max relative error <= 1e-12) and float32 (<= 1e-5 for the
-   applications K1/K6, <= 1e-4 for the smoothers K2/K3/K5: the summation
+   applications K1/K6, <= 1e-4 for the smoothers K2/K3/K4/K5: the summation
    order differs), and times both with CUDA events: K1-K3 at the 2-D
-   flagship's shapes, K6 and K5 (real, complex) at heat3d's;
+   flagship's shapes, K6 and K5 (real, complex) at heat3d's, K4 at the
+   Stokes path's (the velocity mass solve and the two smoothed V-cycle
+   levels);
 4. the 2-D slice: a small float64 solve on the card against the same solve
    on the CPU (plain versions), then the flagship heat-control KKT solve
    (Q1 256^2 x 64, Crank-Nicolson, ParaDiag Schur sweeps, GMRES(10), rtol
@@ -29,7 +31,20 @@ which raises (and the script exits non-zero) on failure:
    the CPU, then the full-size solve, once and then timed; it must converge
    below 1e-6 in at most 10 iterations with K5 (real, complex) and K6
    launched during the timed solve; then the ``scan`` sweeps once;
-6. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers, and
+6. the Stokes slice (``bench_extra.py``'s ``stokes``: Taylor-Hood Q2-Q1 on
+   64^2 cells x 32 time steps, CN, beta = 1e-2, the nested preconditioner
+   with the default ``scan`` sweeps, FGMRES(10), rtol 1e-6, at most 100
+   iterations) through
+   ``Control.Instationary(...).incompressible_linear_solve``: a small
+   float64 solve (8^2 x 4) on the card against the CPU, then the full-width
+   solve in float64, once and then timed; it must converge below 1e-6 with
+   K4 and K2 launched during the timed solve.  In float32 this recipe
+   stalls at this width, in the JAX package as in the port (each stage of
+   the preconditioner is accurate to float32, the five fixed inner GMRES
+   iterations amplify the difference), so float32 is a measurement here,
+   not a target: its first 20 outer iterations run at full width and their
+   residual history is printed beside float64's;
+7. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers, and
    last ``{"ok": true, "device": {...}}``.
 
 A full record goes to ``smoke_out/chip_smoke.json`` (git-ignored), the
@@ -53,15 +68,21 @@ TOL = {("K1", "float64"): 1e-12, ("K1", "float32"): 1e-5,
        ("K3", "float64"): 1e-12, ("K3", "float32"): 1e-4,
        ("K6", "float64"): 1e-12, ("K6", "float32"): 1e-5,
        ("K5r", "float64"): 1e-12, ("K5r", "float32"): 1e-4,
-       ("K5c", "float64"): 1e-12, ("K5c", "float32"): 1e-4}
+       ("K5c", "float64"): 1e-12, ("K5c", "float32"): 1e-4,
+       ("K4", "float64"): 1e-12, ("K4", "float32"): 1e-4}
 FLAGSHIP = dict(n=256, n_t=64)
 HEAT3D = dict(n=64, n_t=16, scan_n=64)
+STOKES = dict(n=64, n_t=32, small_n=8, small_n_t=4, float32_budget=20)
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and
 # float32 FLOP/s outside the tensor cores; float64 runs at half the rate
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 33.5e12}
 SOLVER_PARAMETERS = {"linear_solver": "gmres", "gmres_restart": 10,
                      "maximum_iterations": 50, "relative_tolerance": 1.0e-6,
+                     "absolute_tolerance": 0.0,
+                     "monitor_convergence": False}
+STOKES_PARAMETERS = {"linear_solver": "fgmres", "fgmres_restart": 10,
+                     "maximum_iterations": 100, "relative_tolerance": 1.0e-6,
                      "absolute_tolerance": 0.0,
                      "monitor_convergence": False}
 
@@ -125,11 +146,12 @@ def stencil_flops(K, x, applies):
     return applies * K * x.numel() * (8 if x.is_complex() else 2)
 
 
-def cheb_flops(K, b, steps, residual):
+def cheb_flops(K, b, steps, residual, dim=1):
     """The stencil work of a smoothing call plus its per-node updates (r, z,
-    p, x: about 8 real flops per step, 4x that on complex fields)."""
+    p, x: about 8 real flops per step, 4x that on complex fields).  On a
+    vector field every value sums ``dim`` multiply-adds per offset."""
     upd = steps * b.numel() * (32 if b.is_complex() else 8)
-    return stencil_flops(K, b, steps + int(residual)) + upd
+    return dim * stencil_flops(K, b, steps + int(residual)) + upd
 
 
 def errors(got, ref):
@@ -166,6 +188,20 @@ def make_stencil(rng, n_w, grid, complex_=False):
     return w, 1.0 / w[:, K // 2], theta, delta
 
 
+def make_vector_stencil(rng, grid, degree=2):
+    """A diagonally dominant (2d+1)^2-point stencil with a 2 x 2 coupling
+    block per offset on a 2-D ``grid`` (shared weights), its inverse
+    diagonal per component and Gershgorin Chebyshev bounds."""
+    grid = tuple(grid)
+    K = (2 * degree + 1) ** 2
+    w = -0.1 * rng.uniform(0.2, 1.0, (K,) + grid + (2, 2))
+    for c in range(2):
+        w[K // 2, :, :, c, c] = 4.0 + rng.uniform(0.0, 1.0, grid)
+    diag = np.stack([w[K // 2, :, :, c, c] for c in range(2)], axis=-1)
+    lam = 1.05 * float((np.abs(w).sum(axis=(0, -1)) / np.abs(diag)).max())
+    return w, 1.0 / diag, 0.5 * (lam + lam / 4.0), 0.5 * (lam - lam / 4.0)
+
+
 def check_row(name, dtype, shape, got, ref, kernel_fn, plain_fn, work,
               **extra):
     """One kernel check: errors against the plain version, times of both
@@ -191,7 +227,8 @@ def report(results):
 
 
 def check_kernels(dev, record):
-    """K1-K3 at the 2-D flagship's shapes, K6 and K5 at heat3d's."""
+    """K1-K3 at the 2-D flagship's shapes, K6 and K5 at heat3d's, K4 at
+    the Stokes path's."""
     from control_tpu_torch.ops import stencil as st
 
     rng = np.random.default_rng(SEED)
@@ -199,8 +236,10 @@ def check_kernels(dev, record):
     g = FLAGSHIP["n"] + 1
     g3 = HEAT3D["n"] + 1
     n3 = HEAT3D["n_t"] - 1
+    gs = 2 * STOKES["n"] + 1
+    ns = STOKES["n_t"] - 1
     results = {"K1": [], "K2": [], "K3": [], "K6": [], "K5r": [],
-               "K5c": []}
+               "K5c": [], "K4": []}
 
     def field(shape, cplx=False):
         a = rng.standard_normal(shape)
@@ -272,6 +311,30 @@ def check_kernels(dev, record):
                 (nbytes(wt, dt_, bt, xt, th, de, bt, bt),
                  cheb_flops(3 ** nd, bt, steps, True)), steps=steps))
 
+        def vector_cheb_check(grid, nb, steps, residual):
+            # shared Q2 weights (K = 25) and dinv, scalar bounds: the
+            # velocity mass solve (a batch, x0 = 0, no residual) and the
+            # V-cycle levels (unbatched, residual on)
+            w, dinv, th, de = make_vector_stencil(rng, grid)
+            lead = (nb,) if nb else ()
+            wt, dt_ = T(w), T(dinv)
+            bt = T(field(lead + grid + (2,)))
+            x0 = torch.zeros_like(bt) if nb else T(field(grid + (2,)))
+
+            def kern():
+                return st.fused_cheb_smooth(wt, dt_, bt, x0, steps, th, de,
+                                            2, want_residual=residual)
+
+            def plain():
+                return st._cheb_plain(wt, dt_, bt, x0, steps, th, de, 2,
+                                      want_residual=residual)
+
+            outs = (bt, bt) if residual else (bt,)
+            results["K4"].append(check_row(
+                "K4", name, bt.shape, kern(), plain(), kern, plain,
+                (nbytes(wt, dt_, bt, x0, *outs),
+                 cheb_flops(25, bt, steps, residual, dim=2)), steps=steps))
+
         # K1 (63, 257^2); K2 (63, 257^2), 10 steps; K3 32 frequencies, 3
         # steps, at every smoothed level of the flagship's hierarchy
         apply_check("K1", (g, g), n_t - 1)
@@ -284,6 +347,11 @@ def check_kernels(dev, record):
         real_cheb_check("K5r", (g3,) * 3, n3, 10)
         for gl in (65, 33, 17, 9):
             complex_cheb_check("K5c", (gl,) * 3, n3 // 2 + 1, 8)
+        # K4: the mass solve (31, 129^2, 2), 20 steps; the V-cycle levels
+        # 129^2 and 65^2, 8 steps and the residual
+        vector_cheb_check((gs, gs), ns, 20, False)
+        for gl in (gs, (gs + 1) // 2):
+            vector_cheb_check((gl, gl), 0, 8, True)
     record["kernel_checks"] = results
     report(results)
     return results
@@ -295,7 +363,10 @@ def check_kernels(dev, record):
 
 LAMBDA_2D = (0.25, 2.25)
 LAMBDA_3D = (0.125, 3.375)
+LAMBDA_STOKES = dict(lambda_v_bounds=(0.25, 1.5625),
+                     lambda_p_bounds=(0.25, 2.25))
 KEYS_2D = ("stencil_apply", "cheb_smooth_real", "cheb_smooth_complex")
+KEYS_STOKES = ("cheb_smooth_vector", "cheb_smooth_real")
 KEYS_3D = ("stencil_apply_3d", "cheb_smooth_3d_real",
            "cheb_smooth_3d_complex")
 
@@ -370,6 +441,48 @@ def heat3d_problem(n, n_t, dtype, device, mode):
     return ctl
 
 
+def stokes_problem(n, n_t, dtype, device):
+    """``bench_extra.py``'s stokes problem: Taylor-Hood Q2-Q1 on a
+    quadrilateral UnitSquareMesh, CN, beta = 1e-2, time interval (0, 1),
+    zero Dirichlet velocity, the default ``scan`` sweeps."""
+    from control_tpu_torch import (Control, UnitSquareMesh, FunctionSpace,
+                                   VectorFunctionSpace, Function,
+                                   DirichletBC, SpatialCoordinate, grad,
+                                   inner, dx, sin, pi)
+    mesh = UnitSquareMesh(n, n, quadrilateral=True, dtype=dtype,
+                          device=device)
+    space_v = VectorFunctionSpace(mesh, "Lagrange", 2)
+    space_p = FunctionSpace(mesh, "Lagrange", 1)
+    X = SpatialCoordinate(mesh)
+
+    def fdo(trial, test, u, t):
+        return inner(grad(trial), grad(test)) * dx
+
+    def ds_(test, t):
+        v_d = Function(space_v).interpolate(
+            (0.2 * sin(pi * X[0]) * sin(pi * X[1]),
+             0.1 * sin(2 * pi * X[0]) * sin(pi * X[1])))
+        return inner(v_d, test) * dx, v_d
+
+    def ff(test, t):
+        return inner(Function(space_v), test) * dx
+
+    def bc_t(s, t):
+        return DirichletBC(s, (0.0, 0.0), "on_boundary")
+
+    return Control.Instationary(space_v, fdo, desired_state=ds_, force_f=ff,
+                                beta=1e-2, space_p=space_p, n_t=n_t,
+                                time_interval=(0.0, 1.0), CN=True,
+                                bcs_v=bc_t)
+
+
+def stokes_solve(ctl, **extra):
+    from control_tpu_torch import ConstantNullspace
+    return ctl.incompressible_linear_solve(
+        ConstantNullspace(), solver_parameters=STOKES_PARAMETERS,
+        print_error=False, **LAMBDA_STOKES, **extra)
+
+
 def solve(ctl, bounds):
     return ctl.linear_solve(lambda_v_bounds=bounds,
                             solver_parameters=SOLVER_PARAMETERS,
@@ -412,7 +525,6 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
     build timed apart, then solved again with CUDA events around it and
     every launch count set to 0 just before; ``keys`` are the kernels of
     the path, each of which must launch."""
-    from control_tpu_torch.ops import stencil as st
     from control_tpu_torch.config import full_precision
     from control_tpu_torch.fem.assemble import assemble
     from control_tpu_torch.fem.space import combine_masks
@@ -435,44 +547,170 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
         torch.cuda.synchronize()
         pc_build_s = time.perf_counter() - t0
 
+    info, row = repeat_solve_row(lambda: solve(ctl, bounds), metric,
+                                 "paradiag", card)
+    row.update(pc_build_s=pc_build_s, first_solve_s=first_s,
+               first_iterations=first.iterations)
+    fields = {"v": (ctl._v.data, ctl._space_v, n_t),
+              "zeta": (ctl._zeta.data, ctl._space_v, n_t)}
+    return judge_solve(record, key, row, info, max_its, keys, fields)
+
+
+def repeat_solve_row(solve_fn, metric, schur, card, dtype="float32"):
+    """A repeat solve with CUDA events around it and every launch count
+    set to 0 just before, read just after."""
+    from control_tpu_torch.ops import stencil as st
+
     st.reset_launch_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     start.record()
-    info = solve(ctl, bounds)
+    info = solve_fn()
     end.record()
     torch.cuda.synchronize()
     solve_host_s = time.perf_counter() - t0
-    solve_s = start.elapsed_time(end) / 1e3
     launches = dict(st.launch_counts)
+    return info, {"metric": metric, "schur": schur, "dtype": dtype,
+                  "iterations": info.iterations,
+                  "relative_residual": info.rnorm / info.rnorm0,
+                  "converged": info.converged,
+                  "solve_s": start.elapsed_time(end) / 1e3,
+                  "solve_host_s": solve_host_s, "launches": launches,
+                  "card": card}
 
-    v, zeta = ctl._v.data, ctl._zeta.data
-    rel = info.rnorm / info.rnorm0
-    row = {"metric": metric, "schur": "paradiag", "dtype": "float32",
-           "iterations": info.iterations, "relative_residual": rel,
-           "converged": info.converged, "solve_s": solve_s,
-           "solve_host_s": solve_host_s, "pc_build_s": pc_build_s,
-           "first_solve_s": first_s, "first_iterations": first.iterations,
-           "launches": launches, "card": card}
+
+def judge_solve(record, key, row, info, max_its, keys, fields):
+    """Print and record a timed solve's row, and hold it to its targets:
+    convergence below 1e-6 within ``max_its``, every field
+    (name: (tensor, space, blocks)) on the card, finite and of its shape,
+    every kernel of ``keys`` launched."""
     print(json.dumps(row), flush=True)
     record[key] = row
-    if not (info.converged and rel < 1e-6 and info.iterations <= max_its):
+    if not (info.converged and row["relative_residual"] < 1e-6
+            and info.iterations <= max_its):
         raise AssertionError(f"{key} solve off target: {row}")
-    if not (v.is_cuda and zeta.is_cuda):
-        raise AssertionError("solution left the card")
-    shape = (n_t,) + tuple(ctl._space_v.grid_shape)
-    if (tuple(v.shape) != shape or tuple(zeta.shape) != shape
-            or not bool(torch.isfinite(v).all())
-            or not bool(torch.isfinite(zeta).all())):
-        raise AssertionError("solution has the wrong shape or is not "
-                             "finite")
+    for name, (x, space, blocks) in fields.items():
+        if not x.is_cuda:
+            raise AssertionError(f"{name} left the card")
+        if (tuple(x.shape) != (blocks,) + tuple(space.grid_shape)
+                or not bool(torch.isfinite(x).all())):
+            raise AssertionError(f"{name} has the wrong shape or is not "
+                                 "finite")
     for k in keys:
-        if launches[k] <= 0:
+        if row["launches"][k] <= 0:
             raise AssertionError(f"kernel {k} never launched in the "
-                                 f"timed solve: {launches}")
+                                 f"timed solve: {row['launches']}")
     return row
+
+
+def check_small_stokes(dev, record):
+    """The Stokes slice in float64 on the card against the same solve on
+    the CPU (plain versions, which the CPU tests hold to the JAX
+    reference): equal iterations; residual histories within 1e-9 of the
+    initial residual (the dense inverse of the regularised pressure
+    stiffness, condition number ~1e6, comes from two LAPACK-like paths, and
+    the tail of the history, six orders down, drifts by more of its own
+    size); v, zeta within 1e-9; p, mu (means removed) within 1e-8."""
+    n, n_t = STOKES["small_n"], STOKES["small_n_t"]
+    runs = {}
+    for device in ("cpu", dev):
+        ctl = stokes_problem(n, n_t, torch.float64, device)
+        info = stokes_solve(ctl)
+        runs[str(device)] = (info, {k: getattr(ctl, "_" + k).data.cpu()
+                                    for k in ("v", "zeta", "p", "mu")})
+    (ic, sc), (ig, sg) = runs["cpu"], runs[str(dev)]
+    its = ic.iterations
+    hc, hg = ic.res_norms[:its + 1], ig.res_norms[:its + 1]
+    row = dict(n=n, n_t=n_t, iterations_cpu=its,
+               iterations_gpu=ig.iterations,
+               hist_rel_to_initial=float(np.max(np.abs(hc - hg)) / hc[0]),
+               hist_rel_entrywise=float(np.max(np.abs(hc - hg) / hc)))
+    for k in ("v", "zeta", "p", "mu"):
+        a, b = sc[k], sg[k]
+        if k in ("p", "mu"):
+            a = a - a.mean(dim=(1, 2), keepdim=True)
+            b = b - b.mean(dim=(1, 2), keepdim=True)
+        row[k + "_rel"] = float((a - b).abs().max() / a.abs().max())
+    record["small_f64_stokes"] = row
+    print(f"slice f64 stokes scan {n}^2x{n_t}: cuda vs cpu {row}",
+          flush=True)
+    if not (ig.iterations == its and row["hist_rel_to_initial"] < 1e-9
+            and row["v_rel"] < 1e-9 and row["zeta_rel"] < 1e-9
+            and row["p_rel"] < 1e-8 and row["mu_rel"] < 1e-8):
+        raise AssertionError(f"cuda stokes slice disagrees with cpu: {row}")
+
+
+def timed_stokes(dev, record, card):
+    """The Stokes solve at full width, float64: solved once, the build of
+    its pieces (block system, preconditioner state, right-hand sides) timed
+    apart, then solved again with CUDA events around it and the launch
+    counts set to 0 just before."""
+    n, n_t = STOKES["n"], STOKES["n_t"]
+    t0 = time.perf_counter()
+    ctl = stokes_problem(n, n_t, torch.float64, dev)
+    first = stokes_solve(ctl)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stokes_solve(ctl, _return_pieces=True)
+    torch.cuda.synchronize()
+    pc_build_s = time.perf_counter() - t0
+
+    info, row = repeat_solve_row(lambda: stokes_solve(ctl),
+                                 "stokes_64x64_nt32_kkt_solve_cuda", "scan",
+                                 card, dtype="float64")
+    its = info.iterations
+    row.update(pc_build_s=pc_build_s, first_solve_s=first_s,
+               first_iterations=first.iterations,
+               residual_history=[float(r) for r in info.res_norms[:its + 1]])
+    fields = {"v": (ctl._v.data, ctl._space_v, n_t),
+              "zeta": (ctl._zeta.data, ctl._space_v, n_t),
+              "p": (ctl._p.data, ctl._space_p, n_t - 1),
+              "mu": (ctl._mu.data, ctl._space_p, n_t - 1)}
+    return judge_solve(record, "stokes", row, info,
+                       STOKES_PARAMETERS["maximum_iterations"], KEYS_STOKES,
+                       fields)
+
+
+def stokes_float32_history(dev, record, card, float64_history):
+    """A measurement, not a check: the first outer iterations of the same
+    Stokes solve in float32 at full width, beside float64's.  The
+    reference's recipe stalls in float32 at this width in both packages, so
+    the solve runs with a budget of ``float32_budget`` iterations and
+    reports where it got to; only a residual that is not finite fails."""
+    n, n_t, budget = STOKES["n"], STOKES["n_t"], STOKES["float32_budget"]
+    ctl = stokes_problem(n, n_t, torch.float32, dev)
+    from control_tpu_torch import ConstantNullspace
+    from control_tpu_torch.ops import stencil as st
+
+    st.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # "preconditioner": the solve returns its record at the end of the
+    # budget instead of raising
+    info = ctl.incompressible_linear_solve(
+        ConstantNullspace(), print_error=False, **LAMBDA_STOKES,
+        solver_parameters=dict(STOKES_PARAMETERS, preconditioner=True,
+                               maximum_iterations=budget))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    its = info.iterations
+    hist = [float(r / info.res_norms[0]) for r in info.res_norms[:its + 1]]
+    row = {"metric": "stokes_64x64_nt32_float32_first_iterations",
+           "dtype": "float32", "budget": budget, "iterations": its,
+           "converged": info.converged, "relative_history": hist,
+           "float64_relative_history": [
+               r / float64_history[0] for r in float64_history[:budget + 1]],
+           "first_solve_s": seconds, "launches": dict(st.launch_counts),
+           "card": card}
+    print(json.dumps(row), flush=True)
+    record["stokes_float32"] = row
+    if not np.all(np.isfinite(hist)):
+        raise AssertionError(f"float32 stokes residuals not finite: {row}")
 
 
 def scan_once(dev, record, key, build, size, bounds):
@@ -544,20 +782,28 @@ def main():
                      (HEAT3D["n"], HEAT3D["n_t"]), LAMBDA_3D, 10, KEYS_3D)
     scan_once(dev, record, "heat3d_scan", heat3d_problem,
               (HEAT3D["scan_n"], HEAT3D["n_t"]), LAMBDA_3D)
+    # the Stokes slice
+    check_small_stokes(dev, record)
+    sk = timed_stokes(dev, record, card)
+    stokes_float32_history(dev, record, card, sk["residual_history"])
 
-    def row(kname, source, replaces, key, launches, checks_rows):
-        f32 = [r for r in checks_rows if r["dtype"] == "float32"]
-        main = f32[0]
+    def row(kname, source, replaces, key, launches, checks_rows,
+            dtype="float32"):
+        # the numbers of the first shape checked, in the dtype its path
+        # runs; the largest error over that dtype's shapes
+        rows = [r for r in checks_rows if r["dtype"] == dtype]
+        main = rows[0]
         return {"name": kname, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[key],
-                "max_abs_err": max(r["max_abs_err"] for r in f32),
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
                 "library_ms": None}
 
     apply_src = "control_tpu_torch/csrc/stencil_apply.cu"
     cheb_src = "control_tpu_torch/csrc/cheb_smooth.cu"
-    fl, hl = flag["launches"], h3["launches"]
+    vector_src = "control_tpu_torch/csrc/cheb_smooth_vector.cu"
+    fl, hl, sl = flag["launches"], h3["launches"], sk["launches"]
     kernels_line = {"kernels": [
         row("K1 stencil_apply", apply_src, "control_tpu/ops/stencil.py:206",
             "stencil_apply", fl, checks["K1"]),
@@ -567,6 +813,9 @@ def main():
         row("K3 cheb_smooth (complex)", cheb_src,
             "control_tpu/ops/stencil.py:728", "cheb_smooth_complex", fl,
             checks["K3"]),
+        row("K4 cheb_smooth (vector)", vector_src,
+            "control_tpu/ops/stencil.py:853", "cheb_smooth_vector", sl,
+            checks["K4"], dtype="float64"),
         row("K5 cheb_smooth 3-D (real)", cheb_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real", hl,
             checks["K5r"]),

@@ -5,7 +5,7 @@ building blocks)."""
 import torch
 
 from ..fem.space import Function
-from ..ops.local_op import MaskedOp
+from ..ops.local_op import LocalOp, MaskedOp
 from ..ops.stencil import StencilOp, fused_cheb_smooth
 from ..solvers.multigrid import MGConfig
 
@@ -22,8 +22,10 @@ class BlockSolver:
       ("mg", cycles)          -- 'preonly + boomeramg, max_iter=cycles'
       ("cheb", bounds, iters) -- 'chebyshev + jacobi' with spectral bounds
       ("jacobi",)             -- 'preonly + jacobi'
-    Applies batched over arbitrary leading axes.  ``state`` (as exposed by
-    ``.state``) rebuilds the solver from previously derived tensors.
+    Applies batched over arbitrary leading axes, on scalar and vector
+    spaces, with a Dirichlet ``mask`` or none (the pressure space).
+    ``state`` (as exposed by ``.state``) rebuilds the solver from previously
+    derived tensors.
     """
 
     def __init__(self, op, mask, kind, state=None):
@@ -51,7 +53,7 @@ class BlockSolver:
             return self.config.apply(self.params, b, cycles=self.kind[1])
         if self.kind[0] == "cheb":
             # the krylov.chebyshev recurrence as one fused smoothing call
-            # (kernel K2 on the card; K5 in 3-D)
+            # (kernel K2 on the card; K4 on 2-D vector spaces; K5 in 3-D)
             _, bounds, iters = self.kind
             theta = 0.5 * (bounds[1] + bounds[0])
             delta = 0.5 * (bounds[1] - bounds[0])
@@ -64,6 +66,20 @@ class BlockSolver:
                                   delta, self.op.degree, nd=self.op.nd)
             return x.reshape(lead + grid)
         return b / self.diag
+
+
+def regularized_stiffness(K_op, M_op, eps=1.0e-6):
+    """K + c*M with c = eps * max|diag K| / max|diag M|.
+
+    The pressure stiffness of an enclosed-flow (pure-Neumann) problem is
+    singular (constant nullspace), and the multigrid hierarchy ends in a
+    dense coarse inverse, which a singular matrix makes meaningless.  A
+    mass shift of relative size eps makes the coarse solve well-posed while
+    perturbing the preconditioner only at O(eps)."""
+    dK = torch.max(torch.abs(K_op.diag()))
+    dM = torch.max(torch.abs(M_op.diag()))
+    c = eps * dK / dM
+    return LocalOp(K_op.A + c * M_op.A, K_op.trial_space, K_op.test_space)
 
 
 def mass_solver(M_op, mask, multigrid_flag, lambda_bounds, state=None,

@@ -1,5 +1,6 @@
 """Instationary (space-time all-at-once) optimal control problems, the
-Crank-Nicolson linear path.
+Crank-Nicolson linear paths: heat control (``linear_solve``) and Stokes
+control on a velocity / pressure pair (``incompressible_linear_solve``).
 
 The all-at-once vector over n_t time steps is a stacked tensor
 (n_t, *grid); the block-bidiagonal space-time KKT operator becomes a
@@ -19,26 +20,34 @@ or all at once by ParaDiag: an alpha-circulant approximation diagonalised
 by a time-axis DFT, with one batched complex V-cycle over the frequencies
 (kernel K3; K5 in 3-D) and a defect correction (kernel K1; K6 in 3-D).
 Everything is dimension-generic: the same code runs Q1 quadrilaterals and
-hexahedra.
+hexahedra, and vector spaces with the sequential sweeps.
+
+The incompressible solve nests this preconditioner: five fixed GMRES
+iterations on the space-time velocity KKT system, preconditioned as above
+on the vector space (mass solves and V-cycle smoothing: kernel K4), and a
+per-time-block pressure Schur part K_p^{-1} (KKT_p) M_p^{-1} with the
+1/tau^2 scaling and the T sandwiches (the M_p solve: kernel K2).
 """
 
 import numpy as np
 import torch
 
 from ..config import complex_dtype, full_precision
-from ..fem.expr import TrialFunction, TestFunction, Constant, inner
+from ..fem.expr import (TrialFunction, TestFunction, Constant, inner, grad,
+                        div)
 from ..fem.forms import dx
 from ..fem.space import (Function, MixedFunction, DirichletBC, homogenize,
                          combine_masks)
 from ..fem.assemble import assemble
 from ..ops.local_op import LocalOp
 from ..ops.stencil import node_stencil, apply_stencil
-from ..solvers.block import (MultiBlockSystem, DirichletBCNullspace,
-                             NoneNullspace, apply_T_1, apply_T_2,
-                             apply_T_1_inv, apply_T_2_inv,
+from ..solvers.block import (MultiBlockSystem, BlockAction,
+                             DirichletBCNullspace, NoneNullspace, apply_T_1,
+                             apply_T_2, apply_T_1_inv, apply_T_2_inv,
                              finalize_solve_info)
 from ..solvers.multigrid import MGConfig, index_params, flip_params
-from .common import mass_solver, zero_rows, bc_lift_function
+from .common import (BlockSolver, mass_solver, regularized_stiffness,
+                     zero_rows, bc_lift_function)
 
 
 def _probe_form_dependence(form_fn, space, coeff_space, t_samples):
@@ -73,7 +82,8 @@ def _probe_form_dependence(form_fn, space, coeff_space, t_samples):
 
 def _fast_stack_applier(space, A):
     """Batched stacked-operator application via the node-stencil path
-    (kernel K1 on the card; K6 in 3-D)."""
+    (kernel K1 on the card; K6 in 3-D; shifted multiply-adds with
+    dim x dim coupling blocks on vector spaces)."""
     w = node_stencil(A, space)
     d, nd = space.degree, space.ndim
     return lambda x: apply_stencil(w, x, d, nd=nd)
@@ -84,7 +94,8 @@ class _SweepSolver:
     u_i = V-cycle_i(b_i - S_i u_{i-1}), one time block after another, with
     per-time-block multigrid hierarchies built once (batched when the
     blocks differ).  The sub-diagonal action is a node stencil (K1; K6 in
-    3-D), the V-cycle smoothing real (K2; K5 in 3-D)."""
+    3-D), the V-cycle smoothing real (K2; K5 in 3-D; K4 on 2-D vector
+    spaces)."""
 
     def __init__(self, space, mask, diag_A, sub_A, cycles=1, state=None):
         self.space, self.mask, self.cycles = space, mask, cycles
@@ -96,7 +107,8 @@ class _SweepSolver:
         else:
             self.params = self.config.build(diag_A[0] if self.shared
                                             else diag_A)
-            self.sub = node_stencil(sub_A, space)      # (m|1, K, *grid)
+            # (m|1, K, *grid), on vector spaces (m|1, K, *nodes, dim, dim)
+            self.sub = node_stencil(sub_A, space)
         self.state = {"params": self.params, "sub": self.sub}
 
     def solve(self, b, reverse=False):
@@ -244,9 +256,6 @@ class Instationary:
                  Gauss_Newton=False, CN=True, n_t=20,
                  initial_condition=None, time_interval=None, bcs_v=None,
                  force_function=None):
-        if space_p is not None:
-            raise NotImplementedError(
-                "the incompressible problems are not ported yet")
         if force_f is None:
             force_f = force_function
         if desired_state is None:
@@ -259,6 +268,8 @@ class Instationary:
                 return inner(f, test_v) * dx
 
         self._space_v = space_v
+        self._space_p = None
+        self._M_p = None
         self._forward_form = forward_form
         self._desired_state = desired_state
         self._force_function = force_f
@@ -282,6 +293,8 @@ class Instationary:
                 bc.apply(v.sub(i))
         self._v = v
         self._zeta = MixedFunction(space_v, n_t, name="zeta")
+        if space_p is not None:
+            self.set_space_p(space_p)
         self._true_v = None
         self._data_cache = {}
         self._pc_state_cache = {}
@@ -328,6 +341,19 @@ class Instationary:
         self._bc_stack_cache = (key, (mk, val))
         return mk, val
 
+    def set_space_p(self, space_p, *, p=None, mu=None):
+        """The pressure space of the incompressible problems, with the
+        pressure ``p`` and its adjoint ``mu`` (one block per time step
+        after the first)."""
+        self._space_p = space_p
+        p_test, p_trial = TestFunction(space_p), TrialFunction(space_p)
+        self._M_p = inner(p_trial, p_test) * dx
+        n_p = self._n_t if not self._CN else self._n_t - 1
+        self._p = p if p is not None else MixedFunction(space_p, n_p,
+                                                        name="p")
+        self._mu = mu if mu is not None else MixedFunction(space_p, n_p,
+                                                           name="mu")
+
     def set_v(self, v_new):
         self._v.assign(v_new)
         mk, val = self._bc_stack()
@@ -339,6 +365,16 @@ class Instationary:
         if bcs_zeta:
             mask = combine_masks(self._space_v, bcs_zeta)
             self._zeta.data = torch.where(mask[None], 0.0, self._zeta.data)
+
+    def set_p(self, p_new):
+        if self._space_p is None:
+            raise ValueError("Undefined space_p: unable to assign value")
+        self._p.assign(p_new)
+
+    def set_mu(self, mu_new):
+        if self._space_p is None:
+            raise ValueError("Undefined space_p: unable to assign value")
+        self._mu.assign(mu_new)
 
     def print_error(self, tau=None):
         if tau is None:
@@ -450,13 +486,16 @@ class Instationary:
         return Function(self._space_v, name="v_0")
 
     # ------------------------------------------------------- block building
-    def _blocks(self, Dv_A, M=None):
+    def _blocks(self, Dv_A, M=None, space=None):
         """Block dicts of the Crank-Nicolson all-at-once KKT operator
-        (reference control/control.py:2889-2978)."""
+        (reference control/control.py:2889-2978), on the velocity space or,
+        with the stacked operator and the mass operator of another
+        ``space``, on that one (the pressure space of the Schur
+        approximation)."""
         if not self._CN:
             raise NotImplementedError("backward Euler is not ported yet")
         n_t, tau, beta = self._n_t, self._tau, self._beta
-        sp = self._space_v
+        sp = self._space_v if space is None else space
         if M is None:
             M = assemble(self._M_v)
         M_A = M.A                                   # (1|E, b, a)
@@ -505,6 +544,10 @@ class Instationary:
         mode = getattr(self, "_schur_mode", "scan")
         toeplitz = F_diag.shape[0] == 1 and G_diag.shape[0] == 1
         if mode in ("auto", "paradiag") and n > 1 and toeplitz:
+            if space.dim is not None:
+                raise NotImplementedError(
+                    "ParaDiag sweeps on vector spaces (complex vector "
+                    "smoothing) are not ported yet; use the scan sweeps")
             kw = dict(alpha=getattr(self, "_paradiag_alpha", None),
                       defect_steps=getattr(self, "_paradiag_dc", 1),
                       cycles=getattr(self, "_paradiag_cycles", 2),
@@ -803,3 +846,288 @@ class Instationary:
         self.set_v(v_new)
         self.set_zeta(zeta_new)
         return info
+
+    # =====================================================================
+    # incompressible (Stokes) variant
+    # =====================================================================
+    def _D_p_stack(self, v_old_data):
+        """Pressure-space analogue of the forward operator, for the Schur
+        approximation (reference control/control.py:3786-3789): the form
+        assembled on pressure trial and test functions (Picard)."""
+        if self._Gauss_Newton:
+            raise NotImplementedError(
+                "the Gauss-Newton linearisation is not ported yet")
+        sp_p = self._space_p
+        p_trial, p_test = TrialFunction(sp_p), TestFunction(sp_p)
+        t_0, T_f = self._time_interval
+        dep_v, dep_t = _probe_form_dependence(
+            self._forward_form, sp_p, self._space_v,
+            (t_0, t_0 + 0.618 * (T_f - t_0)))
+
+        def one(vdata, t):
+            vf = Function(self._space_v, data=vdata)
+            return assemble(self._forward_form(p_trial, p_test, vf,
+                                               Constant(t))).A
+
+        if not dep_v and not dep_t:
+            return one(torch.zeros_like(v_old_data[0]), float(t_0))[None]
+        mats = [one(v_old_data[i], float(t))
+                for i, t in enumerate(self._times())]
+        E = max(a.shape[0] for a in mats)
+        return torch.stack([a.expand((E,) + tuple(a.shape[1:]))
+                            for a in mats])
+
+    def _incompressible_blocks(self, Dv_A, B, B_T, M=None):
+        """The 2n x 2n velocity-KKT and divergence block dicts of the
+        Crank-Nicolson system (reference control/control.py:3750-3957):
+        rows and columns 0..n-1 belong to v, n..2n-1 to zeta."""
+        if not self._CN:
+            raise NotImplementedError("backward Euler is not ported yet")
+        tau = self._tau
+        n = self._n_t - 1
+        i00, i01, i10, i11, M = self._blocks(Dv_A, M=M)
+        block_00 = dict(i00)
+        block_00.update({(i, n + j): o for (i, j), o in i01.items()})
+        block_00.update({(n + i, j): o for (i, j), o in i10.items()})
+        block_00.update({(n + i, n + j): o for (i, j), o in i11.items()})
+        tB = LocalOp(tau * B.A, B.trial_space, B.test_space)
+        tBT = LocalOp(tau * B_T.A, B_T.trial_space, B_T.test_space)
+        block_01 = {(i, i): tBT for i in range(2 * n)}
+        block_10 = {(i, i): tB for i in range(2 * n)}
+        return block_00, block_01, block_10, {}, M
+
+    def _p_kkt_dicts(self, Dp_A):
+        """Pressure-space space-time KKT dicts for the Schur approximation
+        (reference control/control.py:3722-3957), Crank-Nicolson: the
+        blocks of ``_blocks`` built from the pressure-space operator and
+        mass."""
+        return self._blocks(Dp_A, M=assemble(self._M_p),
+                            space=self._space_p)
+
+    def incompressible_linear_solve(self, nullspace_p, *, space_p=None,
+                                    P=None, solver_parameters=None,
+                                    Multigrid=False, lambda_v_bounds=None,
+                                    lambda_p_bounds=None, v_d=None, f=None,
+                                    div_v=None, div_zeta=None,
+                                    print_error=True, create_output=False,
+                                    plots=False, _return_pieces=False):
+        """Space-time Stokes KKT solve with the nested preconditioner
+        (reference control/control.py:3592-4884), Crank-Nicolson: five
+        fixed inner GMRES iterations on the full space-time velocity KKT
+        system plus a per-time-block pressure Schur part
+        K_p^{-1} (KKT_p) M_p^{-1} with 1/tau^2 scaling and T sandwiches.
+
+        The unknowns are 2n velocity blocks (v_1..v_n, zeta_0..zeta_{n-1})
+        and 2n pressure blocks (mu, p), n = n_t - 1.  ``v_d``, ``f``,
+        ``div_v`` and ``div_zeta`` replace the four right-hand sides by
+        given stacks.  The Krylov loop runs on the host with every vector
+        on the device, as in ``linear_solve``.
+
+        ``_return_pieces``: skip the solve and return
+        ``(system, pc_fn, b_0, b_1)``.
+
+        Not ported (each raises ``NotImplementedError``): backward Euler,
+        a user preconditioner ``P``, iterative refinement, the
+        divergence-free projection of the initial state, inhomogeneous
+        velocity data, the ParaDiag and jacobi sweeps on vector spaces,
+        plots."""
+        if not self._CN:
+            raise NotImplementedError("backward Euler is not ported yet")
+        if P is not None:
+            raise NotImplementedError(
+                "user preconditioners for the incompressible solve are "
+                "not ported yet")
+        if plots:
+            raise NotImplementedError("plots are not ported yet")
+        if solver_parameters is not None and (
+                solver_parameters.get("iterative_refinement")
+                or "refinement_inner_tolerance" in solver_parameters):
+            raise NotImplementedError(
+                "iterative refinement is not ported yet")
+        if getattr(self, "_divfree_initial", False):
+            raise NotImplementedError(
+                "the divergence-free projection of the initial state is "
+                "not ported yet")
+        if space_p is not None:
+            self.set_space_p(space_p)
+        elif self._space_p is None:
+            raise ValueError("Undefined space_p")
+        if any(not bc.is_homogeneous
+               for i in self._bcs_v for bc in self._bcs_v[i]):
+            raise NotImplementedError(
+                "inhomogeneous velocity data is not ported yet for the "
+                "incompressible solve")
+        with full_precision():
+            out = self._incompressible_linear_solve(
+                nullspace_p, solver_parameters, Multigrid, lambda_v_bounds,
+                lambda_p_bounds, v_d, f, div_v, div_zeta, print_error,
+                _return_pieces)
+        if _return_pieces:
+            return out
+        if print_error:
+            self.print_error(self._tau)
+        if create_output:
+            times = self._times()
+            for name, fn, ts in (("v", self._v, times),
+                                 ("zeta", self._zeta, times),
+                                 ("p", self._p, times[:self._n_t - 1]),
+                                 ("mu", self._mu, times[:self._n_t - 1])):
+                np.savez(f"{name}.npz", data=fn.data.cpu().numpy(),
+                         times=ts)
+        return out
+
+    def _incompressible_linear_solve(self, nullspace_p, solver_parameters,
+                                     Multigrid, lambda_v_bounds,
+                                     lambda_p_bounds, v_d, f, div_v,
+                                     div_zeta, print_error, return_pieces):
+        space_v, space_p = self._space_v, self._space_p
+        n_t, tau = self._n_t, self._tau
+        n = n_t - 1
+        bcs_v = self._bcs_v[1]
+        mask = combine_masks(space_v, bcs_v) if bcs_v else None
+        nullspace_v = (DirichletBCNullspace(bcs_v) if bcs_v
+                       else NoneNullspace())
+        full_ns_0 = tuple(nullspace_v for _ in range(2 * n))
+        full_ns_1 = tuple(nullspace_p for _ in range(2 * n))
+
+        v_0 = self._initial_state()
+        Dv_A = self._D_stack(self._v.data)
+        v_trial, v_test = TrialFunction(space_v), TestFunction(space_v)
+        p_trial, p_test = TrialFunction(space_p), TestFunction(space_p)
+        B = assemble(-inner(div(v_trial), p_test) * dx)
+        B_T = assemble(-inner(p_trial, div(v_test)) * dx)
+        M = assemble(self._M_v)
+
+        # rhs: the velocity part is the heat problem's
+        b_0_0, b_0_1 = self._build_rhs(v_d, f, v_0, Dv_A, M, mask, False,
+                                       self._bcs_v)
+
+        def stack_of(given):
+            if given is None:
+                return space_p.zeros(n)
+            return given.data if hasattr(given, "data") else given
+
+        b_0 = torch.cat([b_0_0, b_0_1])
+        b_1 = torch.cat([apply_T_2(stack_of(div_v)),
+                         apply_T_1(stack_of(div_zeta))])
+
+        if solver_parameters is None:
+            solver_parameters = {"linear_solver": "fgmres",
+                                 "fgmres_restart": 10,
+                                 "maximum_iterations": 100,
+                                 "relative_tolerance": 1.0e-6,
+                                 "absolute_tolerance": 0.0,
+                                 "monitor_convergence": print_error}
+        Dp_A = self._D_p_stack(self._v.data)
+
+        def make_pieces(pc_state=None):
+            b00, b01, b10, b11, _ = self._incompressible_blocks(
+                Dv_A, B, B_T, M=M)
+            system = MultiBlockSystem(
+                space_v, space_p,
+                block_00=b00, block_01=b01, block_10=b10, block_11=b11,
+                n_blocks_00=2 * n, n_blocks_11=2 * n,
+                sub_n_blocks_00_0=n, sub_n_blocks_11_0=n,
+                nullspace_0=full_ns_0, nullspace_1=full_ns_1, CN=True)
+
+            # inner velocity-KKT system (the heat problem's blocks)
+            i00, i01, i10, i11, _ = self._blocks(Dv_A, M=M)
+            inner_ns = tuple(nullspace_v for _ in range(n))
+            inner_system = MultiBlockSystem(
+                space_v, space_v,
+                block_00=i00, block_01=i01, block_10=i10, block_11=i11,
+                n_blocks_00=n, n_blocks_11=n,
+                nullspace_0=inner_ns, nullspace_1=inner_ns, CN=True)
+            inner_pc = self.construct_pc(
+                Multigrid, lambda_v_bounds, mask, Dv_A, M,
+                prebuilt=None if pc_state is None else pc_state["inner"])
+            # the reference fixes 5 inner iterations
+            # (control/control.py:4355-4361)
+            inner_solve = inner_system.solve_fn(
+                solver_parameters={"preconditioner": True,
+                                   "linear_solver": "gmres",
+                                   "maximum_iterations": 5,
+                                   "relative_tolerance": 0.0,
+                                   "absolute_tolerance": 0.0,
+                                   "gmres_restart": 30},
+                pc_fn=inner_pc)
+
+            p00, p01, p10, p11, M_p = self._p_kkt_dicts(Dp_A)
+            K_p = regularized_stiffness(
+                assemble(inner(grad(p_trial), grad(p_test)) * dx), M_p)
+            solver_K_p = BlockSolver(K_p, None, ("mg", 1),
+                                     state=None if pc_state is None
+                                     else pc_state["K_p"])
+            solver_M_p = mass_solver(M_p, None, False, lambda_p_bounds,
+                                     state=None if pc_state is None
+                                     else pc_state["M_p"],
+                                     steps=getattr(self, "_mass_cheb_steps",
+                                                   None))
+            act_00 = BlockAction(p00, n, n, space_p, space_p)
+            act_01 = BlockAction(p01, n, n, space_p, space_p)
+            act_10 = BlockAction(p10, n, n, space_p, space_p)
+            act_11 = BlockAction(p11, n, n, space_p, space_p)
+
+            def pc_fn(b_0, b_1):
+                z = torch.zeros_like(b_0[:n])
+                u0v, u0z, _ = inner_solve(z, z, b_0[:n], b_0[n:])
+                u_0 = torch.cat([u0v, u0z])
+                # pressure Schur: 1/tau^2 scaling and T sandwiches
+                b0h = apply_T_2(tau * B.apply(u0v))
+                b1h = apply_T_1(tau * B.apply(u0z))
+                b0h = apply_T_2_inv((b0h - b_1[:n]) / tau ** 2)
+                b1h = apply_T_1_inv((b1h - b_1[n:]) / tau ** 2)
+                # K_p and M_p are time-independent: the (mu, p) pair and
+                # all time blocks solve as one batch of 2n blocks
+                u1k = solver_K_p(torch.cat([b0h, b1h]))
+                u10, u11 = u1k[:n], u1k[n:]
+                c0 = act_00.apply(u10) + act_01.apply(u11)
+                c1 = act_10.apply(u10) + act_11.apply(u11)
+                u1m = solver_M_p(torch.cat([c0, c1]))
+                return u_0, u1m
+
+            pc_fn.state = {"inner": inner_pc.state,
+                           "K_p": solver_K_p.state,
+                           "M_p": solver_M_p.state}
+            return system, pc_fn
+
+        if return_pieces:
+            system, pc_fn = make_pieces()
+            return system, pc_fn, b_0, b_1
+
+        # pc state cached per linearisation, as in linear_solve
+        tok = (self._pc_key(Multigrid, lambda_v_bounds, mask, Dv_A),
+               "incompressible",
+               None if lambda_p_bounds is None else tuple(lambda_p_bounds),
+               tuple(Dp_A.shape), Dp_A.detach().cpu().numpy().tobytes(),
+               id(space_p))
+        pc_state = self._pc_state_cache.get(tok)
+        if pc_state is None:
+            if len(self._pc_state_cache) > 4:
+                self._pc_state_cache.clear()
+            pc_state = make_pieces()[1].state
+            self._pc_state_cache[tok] = pc_state
+        system, pc_fn = make_pieces(pc_state=pc_state)
+        solve = system.solve_fn(solver_parameters=dict(solver_parameters),
+                                pc_fn=pc_fn)
+        u0, u1, info_d = solve(torch.zeros_like(b_0), torch.zeros_like(b_1),
+                               b_0, b_1)
+        info = finalize_solve_info(info_d, solver_parameters)
+        self.last_solve_info = info
+
+        v = MixedFunction(space_v, n_t, name="v")
+        zeta = MixedFunction(space_v, n_t, name="zeta")
+        if v_d is None and f is None:
+            v.sub(0).assign(v_0)
+        v.data[1:] = u0[:n]
+        zeta.data[:-1] = u0[n:]
+        self.set_v(v)
+        self.set_zeta(zeta)
+        self.set_p(MixedFunction(space_p, n, data=u1[n:], name="p"))
+        self.set_mu(MixedFunction(space_p, n, data=u1[:n], name="mu"))
+        return info
+
+    def incompressible_non_linear_solve(self, *args, **kwargs):
+        raise NotImplementedError(
+            "the nonlinear incompressible (Navier-Stokes) solve is not "
+            "ported yet")

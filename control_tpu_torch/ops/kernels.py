@@ -1,7 +1,8 @@
 """Build and bind the hand-written Hopper kernels in ``control_tpu_torch/csrc``.
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library
-with a plain C interface, loaded with ``ctypes``.  The library is built at
+The sources compile with ``nvcc`` for ``sm_90a`` (one compiler process per
+source, all started together) and link into one shared library with a plain
+C interface, loaded with ``ctypes``.  The library is built at
 first use into ``control_tpu_torch/_build/`` (git-ignored), named by a hash
 of the sources, so an edited source is never served a stale build.  Nothing
 here runs at import: the CPU tests import every module on machines with no
@@ -26,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil_apply.cu", "cheb_smooth.cu")
+SOURCES = ("stencil_apply.cu", "cheb_smooth.cu",
+           "cheb_smooth_vector.cu")
 HEADERS = ("field_ops.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -67,28 +69,39 @@ def build(verbose=False):
     and the compiler's output (with ``verbose``, ptxas's register and
     spill report per kernel; empty when the library was already built).
 
-    The compiler writes to a temporary file that is renamed into place, so
+    Every source compiles to an object file in a process of its own, all
+    running at once; one more ``nvcc`` call links them.  The work happens
+    in a temporary directory and the library is renamed into place, so
     concurrent builds never load a half-written library."""
     out = library_path()
     if out.exists():
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-I", str(CSRC), "-o", tmp]
+    nvcc = _nvcc()
+    flags = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+             "-I", str(CSRC)]
     if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [str(CSRC / s) for s in SOURCES]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout + proc.stderr)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out, proc.stdout + proc.stderr
+        flags += ["-Xptxas", "-v"]
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *flags, "-c", str(CSRC / s), "-o", o],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for s, o in zip(SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [f"{s}:\n{log}" for s, proc, log
+                  in zip(SOURCES, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", lib, *objs],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + link.stdout
+                               + link.stderr)
+        os.replace(lib, out)
+    return out, "".join(logs)
 
 
 def library():
@@ -105,6 +118,11 @@ def library():
                                     i32, vp, vp, vp, vp, i32, i32, i32, i32,
                                     i32, i32, i32, vp]
         lib.cheb_smooth.restype = i32
+        # (..., n, ny, nx, degree, steps, stream)
+        lib.cheb_smooth_vector.argtypes = [i32, vp, i64, vp, i64, vp, vp,
+                                           vp, vp, i32, vp, vp, vp, vp, i32,
+                                           i32, i32, i32, i32, vp]
+        lib.cheb_smooth_vector.restype = i32
         _lib = lib
     return _lib
 

@@ -6,21 +6,32 @@ matrices (and the Dirichlet row/column elimination) into a weight tensor
 
     w : (*batch, K, *grid),   K = (2d+1)^nd,  grid = ([nz,] ny, nx)
 
-turns operator application into K shifted multiply-adds.  Hand-written
-CUDA kernels (``control_tpu_torch/csrc``) carry the hot operations of the
-preconditioner on the card:
+turns operator application into K shifted multiply-adds.  On a vector space
+(fields ``(*batch, *nodes, dim)``, node-major and component-minor) every
+offset carries a dim x dim coupling block per node:
+
+    w : (*batch, K, *nodes, dim, dim).
+
+Hand-written CUDA kernels (``control_tpu_torch/csrc``) carry the hot
+operations of the preconditioner on the card:
 
 * K1 (2-D) and K6 (3-D) ``apply_stencil``: one operator application;
 * K2 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on real fields:
   Chebyshev-Jacobi smoothing plus the final residual (mass solves, real
   V-cycles);
 * K3 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on complex fields: the same
-  recurrence for the ParaDiag frequency blocks.
+  recurrence for the ParaDiag frequency blocks;
+* K4 ``fused_cheb_smooth`` on real 2-D vector fields with dim = 2: the
+  velocity mass solves and V-cycles of the incompressible problems.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs the
 plain PyTorch version beside it (``_apply_plain``, ``_cheb_plain``), a CUDA
 tensor launches the kernel or raises.  ``launch_counts`` counts the kernel
-launches of each wrapper, per kernel.
+launches of each wrapper, per kernel.  The one exception is the *apply* of
+a vector stencil: the JAX package has no TPU kernel for it (its
+``apply_stencil`` sends vector stencils to shifted multiply-adds), so there
+is none to port, and ``apply_stencil`` runs ``_apply_plain`` for vector
+stencils on every device, the card included.
 """
 
 import itertools
@@ -31,10 +42,11 @@ import torch
 from . import kernels
 
 # kernel launches per wrapper (one per call that reaches the card): K1,
-# K2, K3 on 2-D grids, K6 and K5 (real, complex) on 3-D grids
+# K2, K3, K4 on 2-D grids, K6 and K5 (real, complex) on 3-D grids
 launch_counts = {"stencil_apply": 0, "cheb_smooth_real": 0,
-                 "cheb_smooth_complex": 0, "stencil_apply_3d": 0,
-                 "cheb_smooth_3d_real": 0, "cheb_smooth_3d_complex": 0}
+                 "cheb_smooth_complex": 0, "cheb_smooth_vector": 0,
+                 "stencil_apply_3d": 0, "cheb_smooth_3d_real": 0,
+                 "cheb_smooth_3d_complex": 0}
 
 
 def reset_launch_counts():
@@ -51,14 +63,16 @@ def stencil_offsets(degree, nd=2):
 
 def node_stencil(A, space, mask=None, alpha=1.0):
     """Fold local matrices ``A`` (*batch, E|1, b, a) into node-stencil
-    weights (*batch, K, *grid) on scalar spaces (K = (2d+1)**ndim).
+    weights: (*batch, K, *grid) on scalar spaces (K = (2d+1)**ndim), or
+    (*batch, K, *nodes, dim, dim) on vector spaces (a dim x dim
+    component-coupling block per offset per node).
 
-    ``mask`` (optional boolean grid) applies symmetric Dirichlet
-    elimination: masked rows become alpha*identity, masked columns are
-    dropped.
+    ``mask`` (optional boolean grid, with the trailing dim axis on vector
+    spaces) applies symmetric Dirichlet elimination: masked rows become
+    alpha*identity, masked columns are dropped.
     """
     if space.dim is not None:
-        raise NotImplementedError("vector node stencils are not ported yet")
+        return _node_stencil_vector(A, space, mask, alpha)
     d = space.degree
     m = space.mesh
     nd = space.ndim
@@ -87,10 +101,7 @@ def node_stencil(A, space, mask=None, alpha=1.0):
         # zero masked columns: weight k at node p reads x[p + off_k]
         for k, off in enumerate(offs):
             src = torch.zeros_like(mk)
-            ss = tuple(slice(max(0, -o), g - max(0, o))
-                       for o, g in zip(off, grid))
-            sd = tuple(slice(max(0, o), g - max(0, -o))
-                       for o, g in zip(off, grid))
+            ss, sd = _shift_slices(off, grid)
             src[ss] = mk[sd]
             w[(Ellipsis, k) + full] = torch.where(
                 src, 0.0, w[(Ellipsis, k) + full])
@@ -98,6 +109,61 @@ def node_stencil(A, space, mask=None, alpha=1.0):
         kc = K // 2
         w[(Ellipsis, kc) + full] = torch.where(
             mk, alpha, w[(Ellipsis, kc) + full])
+    return w
+
+
+def _shift_slices(off, grid):
+    """Source and destination slices of a shift by ``off`` clipped to
+    ``grid``: ``dst[ss] = src[sd]`` moves the value at p + off to p."""
+    ss = tuple(slice(max(0, -o), g - max(0, o)) for o, g in zip(off, grid))
+    sd = tuple(slice(max(0, o), g - max(0, -o)) for o, g in zip(off, grid))
+    return ss, sd
+
+
+def _node_stencil_vector(A, space, mask=None, alpha=1.0):
+    """The vector fold: weights (*batch, K, *nodes, dim, dim), the shifted
+    windows of the scalar fold with a dim x dim coupling block per
+    offset."""
+    d, dim = space.degree, space.dim
+    m = space.mesh
+    nd = space.ndim
+    K = (2 * d + 1) ** nd
+    batch = tuple(A.shape[:-3])
+    nl = d + 1
+    nloc = nl ** nd
+    cells = (m.nz, m.ny, m.nx) if nd == 3 else (m.ny, m.nx)
+    nodes = tuple(space.grid_shape[:-1])
+    Af = A.expand(batch + (m.n_cells,) + tuple(A.shape[-2:]))
+    # (..., *cells, node_b, dim_b, node_a, dim_a)
+    Af = Af.reshape(batch + cells + (nloc, dim, nloc, dim))
+
+    w = torch.zeros(batch + (K,) + nodes + (dim, dim), dtype=A.dtype,
+                    device=A.device)
+    offs = stencil_offsets(d, nd)
+    kidx = {off: k for k, off in enumerate(offs)}
+    full = (slice(None),) * nd
+    dd = (slice(None), slice(None))
+    for b, bt in enumerate(itertools.product(range(nl), repeat=nd)):
+        sb = tuple(slice(bi, bi + d * (nc - 1) + 1, d)
+                   for bi, nc in zip(bt, cells))
+        for a, at in enumerate(itertools.product(range(nl), repeat=nd)):
+            k = kidx[tuple(ai - bi for ai, bi in zip(at, bt))]
+            w[(Ellipsis, k) + sb + dd] += Af[..., b, :, a, :]
+    if mask is not None:
+        mk = torch.as_tensor(mask, device=A.device)      # (*nodes, dim)
+        # zero masked rows (per node and component)
+        w = torch.where(mk[(None,) + full + (slice(None), None)], 0.0, w)
+        # zero masked columns: weight k at node p reads x[p + off_k]
+        for k, off in enumerate(offs):
+            src = torch.zeros_like(mk)
+            ss, sd = _shift_slices(off, nodes)
+            src[ss] = mk[sd]
+            idx = (Ellipsis, k) + full + dd
+            w[idx] = torch.where(src[..., None, :], 0.0, w[idx])
+        # alpha * identity on masked rows
+        eye = torch.eye(dim, dtype=A.dtype, device=A.device)
+        idxc = (Ellipsis, K // 2) + full + dd
+        w[idxc] = torch.where(mk[..., None], alpha * eye, w[idxc])
     return w
 
 
@@ -112,8 +178,30 @@ def _is_vector_stencil(w, nd=2):
 
 def _apply_plain(w, x, degree, nd=2):
     """Plain PyTorch K1/K6: zero-pad x, then K shifted multiply-adds (the
-    reference's ``_apply_xla``; dimension-generic, scalar stencils)."""
+    reference's ``_apply_xla``; dimension-generic).  A vector stencil
+    (w (..., K, *nodes, dim, dim), x (..., *nodes, dim)) multiplies each
+    shifted field by its coupling block and sums over offsets and
+    components in one reduction."""
     d = degree
+    if _is_vector_stencil(w, nd):
+        dim = x.shape[-1]
+        nodes = tuple(x.shape[-(nd + 1):-1])
+        lead = x.dim() - (nd + 1)
+        # all K shifted windows as one strided view of the padded field:
+        # (*lead, *nodes, dim, k_1..k_nd), window offsets major to minor,
+        # the order of stencil_offsets()
+        xs = torch.nn.functional.pad(x, (0, 0) + (d, d) * nd)
+        for ax in range(nd):
+            xs = xs.unfold(lead + ax, 2 * d + 1, 1)
+        xs = xs.permute(tuple(range(lead))
+                        + tuple(range(lead + nd + 1, lead + 2 * nd + 1))
+                        + tuple(range(lead, lead + nd + 1)))
+        wk = w.reshape(tuple(w.shape[:w.dim() - (nd + 3)])
+                       + (2 * d + 1,) * nd + nodes + (dim, dim))
+        # (..., k_1..k_nd, *nodes, r, c) summed over the offsets and c
+        prod = wk * xs.unsqueeze(-2)
+        first = prod.dim() - (2 * nd + 2)
+        return prod.sum(dim=tuple(range(first, first + nd)) + (-1,))
     grid = x.shape[-nd:]
     full = (slice(None),) * nd
     xp = torch.nn.functional.pad(x, (d, d) * nd)
@@ -190,13 +278,16 @@ def apply_stencil(w, x, degree, nd=2):
 
     w: (K, *grid) or (n, K, *grid); x: (*grid) or (n, *grid) -- the batch
     dims broadcast (shared weights across a time batch are fine).  A CUDA
-    tensor runs kernel K1 (2-D scalar stencils) or K6 (3-D, real, degree
-    1); a CPU tensor runs ``_apply_plain``.
+    tensor with a scalar stencil runs kernel K1 (2-D) or K6 (3-D, real,
+    degree 1); a CPU tensor runs ``_apply_plain``.  Vector stencils
+    (w (..., K, *nodes, dim, dim), x (..., *nodes, dim)) have no TPU kernel
+    in the JAX package and so none here: they run ``_apply_plain`` on
+    every device.
     """
+    if _is_vector_stencil(w, nd):
+        return _apply_plain(w, x, degree, nd=nd)
     if x.is_cuda:
         return _apply_cuda(w, x, degree, nd)
-    if _is_vector_stencil(w, nd):
-        raise NotImplementedError("vector stencils are not ported yet")
     return _apply_plain(w, x, degree, nd=nd)
 
 
@@ -229,9 +320,9 @@ def _round_weights(w, dinv, b, weight_dtype):
 
 def _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
                 want_residual=False, weight_dtype=None, nd=2):
-    """Plain PyTorch K2/K3/K5: the reference's Chebyshev-Jacobi recurrence
-    (``fused_cheb_smooth(use_pallas=False)``), real or complex, any
-    ``nd``."""
+    """Plain PyTorch K2/K3/K4/K5: the reference's Chebyshev-Jacobi
+    recurrence (``fused_cheb_smooth(use_pallas=False)``), real or complex,
+    scalar or vector stencils, any ``nd``."""
     d = degree
     if weight_dtype is not None:
         w, dinv = _round_weights(w, dinv, b, weight_dtype)
@@ -327,6 +418,74 @@ def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
     return (x_out, r) if want_residual else x_out
 
 
+def _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta, degree,
+                      want_residual, nd):
+    """K4: the recurrence on a real 2-D vector field with dim = 2.  w:
+    (K, ny, nx, 2, 2) or (n, K, ny, nx, 2, 2); dinv/b/x0: (ny, nx, 2) or
+    (n, ny, nx, 2).  The kernel reads a field as one pair per node and a
+    coupling block as four consecutive reals, which is the layout of the
+    contiguous tensors."""
+    what = "fused_cheb_smooth (vector)"
+    if nd != 2 or tuple(w.shape[-2:]) != (2, 2):
+        raise NotImplementedError(
+            f"{what}: only 2-D vector stencils with dim = 2 have a CUDA "
+            "kernel")
+    if b.is_complex() or w.is_complex():
+        raise NotImplementedError(
+            f"{what}: complex vector fields have no CUDA kernel")
+    if b.dim() not in (3, 4):
+        raise NotImplementedError(
+            f"{what}: b must be (ny, nx, 2) or (n, ny, nx, 2)")
+    if degree not in (1, 2):
+        raise NotImplementedError(
+            f"{what}: no CUDA kernel for degree {degree}")
+    dt = b.dtype
+    for t in (w, dinv, x0):
+        if t.dtype != dt or t.device != b.device:
+            raise TypeError(f"{what}: w, dinv, b, x0 need one dtype and "
+                            "device")
+    nodes = tuple(b.shape[-3:-1])
+    field = nodes + (2,)
+    K = (2 * degree + 1) ** 2
+    if tuple(w.shape[-5:-2]) != (K,) + nodes or w.dim() not in (5, 6) \
+            or b.shape[-1] != 2:
+        raise ValueError(f"{what}: weight shape mismatch")
+    lead = tuple(b.shape[:-3])
+    n = math.prod(lead)
+    nw = math.prod(w.shape[:-5])
+    if nw not in (1, n):
+        raise ValueError(f"{what}: stencil batch mismatch")
+    w_bs = K * math.prod(nodes) * 4 if nw == n and n > 1 else 0
+    # dinv: one shared field (stride 0) or one per batch entry
+    if math.prod(dinv.shape[:-3]) == 1:
+        dc, d_bs = dinv.reshape(field).contiguous(), 0
+    else:
+        dc, d_bs = dinv.expand(lead + field).contiguous(), math.prod(field)
+    bc = b.contiguous()
+    xc = x0.expand(lead + field).contiguous()
+    th, th_s = _bound_vector(theta, n, dt, b.device)
+    de, de_s = _bound_vector(delta, n, dt, b.device)
+    if th_s != de_s:
+        th = th.expand(n).contiguous() if th_s == 0 else th
+        de = de.expand(n).contiguous() if de_s == 0 else de
+        th_s = 1
+    x_out = torch.empty_like(bc)
+    x_tmp = torch.empty_like(bc)
+    p = torch.empty_like(bc)
+    r = torch.empty_like(bc) if want_residual else None
+    lib = kernels.library()
+    code = lib.cheb_smooth_vector(
+        kernels.DTYPE_CODES[dt], w.contiguous().data_ptr(), w_bs,
+        dc.data_ptr(), d_bs, bc.data_ptr(), xc.data_ptr(), th.data_ptr(),
+        de.data_ptr(), th_s, x_out.data_ptr(), x_tmp.data_ptr(),
+        p.data_ptr(), None if r is None else r.data_ptr(), max(n, 1),
+        nodes[0], nodes[1], degree, int(steps),
+        kernels.stream_ptr(b.device))
+    kernels.check(code, "cheb_smooth_vector")
+    launch_counts["cheb_smooth_vector"] += 1
+    return (x_out, r) if want_residual else x_out
+
+
 def fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta, degree,
                       want_residual=False, weight_dtype=None, nd=2):
     """``steps`` Chebyshev-Jacobi smoothing iterations (+ optionally the
@@ -334,21 +493,25 @@ def fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta, degree,
 
     w: (K, *grid) or (n, K, *grid); dinv/b/x0: (*grid) or (n, *grid)
     (dinv and x0 broadcast to b); theta/delta: scalars or per-batch (n,)
-    vectors.  On a CUDA tensor, real fields run kernel K2 (2-D) or K5
-    (3-D), complex fields (the ParaDiag frequency blocks) K3 (2-D) or K5
-    (3-D); CPU tensors run ``_cheb_plain``.  ``weight_dtype`` (e.g.
-    "bfloat16") rounds the weight and diagonal planes through a narrower
-    dtype; only the plain version implements it.  Returns x (and
-    r = b - A x).
+    vectors.  Vector stencils take w (K, *nodes, dim, dim) or
+    (n, K, *nodes, dim, dim) and fields (*nodes, dim) or (n, *nodes, dim),
+    with dinv per component.  On a CUDA tensor, real fields run kernel K2
+    (2-D) or K5 (3-D), complex fields (the ParaDiag frequency blocks) K3
+    (2-D) or K5 (3-D), real 2-D vector fields with dim = 2 kernel K4 (other
+    vector fields raise ``NotImplementedError``); CPU tensors run
+    ``_cheb_plain``.  ``weight_dtype`` (e.g. "bfloat16") rounds the weight
+    and diagonal planes through a narrower dtype; only the plain version
+    implements it.  Returns x (and r = b - A x).
     """
     if b.is_cuda:
         if weight_dtype is not None:
             raise NotImplementedError(
                 "weight_dtype has no CUDA kernel yet")
+        if _is_vector_stencil(w, nd):
+            return _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta,
+                                     degree, want_residual, nd)
         return _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree,
                           want_residual, nd)
-    if _is_vector_stencil(w, nd):
-        raise NotImplementedError("vector stencils are not ported yet")
     return _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
                        want_residual=want_residual,
                        weight_dtype=weight_dtype, nd=nd)
@@ -359,22 +522,25 @@ def fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta, degree,
 # ---------------------------------------------------------------------------
 
 def stencil_diag(w, vector=False, nd=2):
-    """Assembled diagonal from scalar stencil weights: (..., *grid)."""
+    """Assembled diagonal from stencil weights: (..., *grid[, dim])."""
     if vector:
-        raise NotImplementedError("vector stencils are not ported yet")
+        K = w.shape[-(nd + 3)]
+        c = w.select(w.dim() - (nd + 3), K // 2)
+        return torch.diagonal(c, dim1=-2, dim2=-1)
     K = w.shape[-(nd + 1)]
     return w.select(w.dim() - (nd + 1), K // 2)
 
 
 def stencil_abs_rowsum(w, vector=False, nd=2):
-    """Row sums of |weights| (Gershgorin): (..., *grid)."""
+    """Row sums of |weights| (Gershgorin): (..., *grid[, dim])."""
     if vector:
-        raise NotImplementedError("vector stencils are not ported yet")
+        return torch.sum(torch.abs(w), dim=(-(nd + 3), -1))
     return torch.sum(torch.abs(w), dim=-(nd + 1))
 
 
 class StencilOp:
-    """Matrix-free operator in node-stencil form (scalar spaces).
+    """Matrix-free operator in node-stencil form, on scalar and vector
+    spaces.
 
     Equivalent to (Masked)LocalOp.apply."""
 

@@ -6,12 +6,14 @@ box to every stiffness-like block (reference control/control.py:356-416,
 so:
 
 * prolongation  P  = per-coarse-cell tabulation of the coarse basis at fine
-  node positions (a dilated 2-D or 3-D convolution for Q1),
-* restriction   R  = P^T (a strided convolution for Q1),
+  node positions (a dilated 2-D or 3-D convolution for scalar Q1; gather,
+  one cell matrix, scatter with multiplicity averaging for degree 2 and
+  for vector spaces),
+* restriction   R  = P^T (a strided convolution for scalar Q1),
 * coarse operators by Galerkin RAP computed directly on per-cell local
   matrices,
-* Chebyshev-Jacobi smoothing (kernels K2/K3 on the card, K5 on 3-D
-  grids) with Gershgorin bounds from the node stencils,
+* Chebyshev-Jacobi smoothing (kernels K2/K3 on the card, K4 on 2-D vector
+  spaces, K5 on 3-D grids) with Gershgorin bounds from the node stencils,
 * a dense inverse on the coarsest level.
 
 Hierarchies take leading batch axes on the fine local matrices: one
@@ -26,7 +28,7 @@ import torch.nn.functional as F
 
 from ..fem import elements
 from ..fem.space import FunctionSpace
-from ..ops.local_op import LocalOp, MaskedOp
+from ..ops.local_op import LocalOp, MaskedOp, _global_indices
 from ..ops.stencil import (node_stencil, stencil_diag, stencil_abs_rowsum,
                            fused_cheb_smooth)
 
@@ -57,20 +59,77 @@ def _cell_prolongation(cell, degree, ndim=2):
     return N
 
 
-class Transfer:
-    """Grid transfer between a degree-1 quadrilateral or hexahedral space
-    and its coarsened mesh.
+def _index_maps(space, device):
+    """Index tensors that gather and scatter a whole field of ``space`` in
+    one indexing operation each (the strided-slice ``gather`` /
+    ``scatter_add`` of the space run one small operation per local node,
+    which on a card costs more in launches than in work).
 
-    Interpolation is translation-invariant on a uniform mesh, so
-    prolongation / restriction are one dilated / strided convolution with
-    the separable Q1 hat kernel, the outer power of (0.5, 1, 0.5) over the
-    grid axes (zero padding clips at the boundary)."""
+    ``gather`` (E, nloc): positions in the flattened field of every cell's
+    local coefficients.  ``scatter`` (n_dofs, m): for every dof the
+    positions in the flattened (E * nloc) cell-local array that add up to
+    it, padded with E * nloc, the position of an appended zero; m is the
+    largest number of cells that share a dof.  Summing the gathered
+    positions is deterministic (no atomics)."""
+    gi = _global_indices(space)                      # (E, nloc), numpy
+    flat = gi.ravel()
+    order = np.argsort(flat, kind="stable")
+    dofs = flat[order]
+    counts = np.bincount(flat, minlength=space.n_dofs)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    rank = np.arange(flat.size) - starts[dofs]
+    scatter = np.full((space.n_dofs, int(counts.max())), flat.size,
+                      dtype=np.int64)
+    scatter[dofs, rank] = order
+    return (torch.as_tensor(gi, device=device),
+            torch.as_tensor(scatter, device=device))
+
+
+def _gather(idx, x, space):
+    """(*batch, *grid_shape) -> (*batch, E, nloc), as ``space.gather``."""
+    batch = tuple(x.shape[:x.dim() - len(space.grid_shape)])
+    return x.reshape(batch + (-1,))[..., idx]
+
+
+def _scatter_add(sidx, r, space):
+    """(*batch, E, nloc) -> (*batch, *grid_shape), as
+    ``space.scatter_add``."""
+    batch = tuple(r.shape[:-2])
+    flat = F.pad(r.reshape(batch + (-1,)), (0, 1))
+    return flat[..., sidx].sum(-1).reshape(batch + space.grid_shape)
+
+
+def _vec_block(P, dim):
+    """Blow up (m, n) to (m*dim, n*dim) with interleaved components."""
+    m, n = P.shape
+    out = np.zeros((m * dim, n * dim))
+    for c in range(dim):
+        out[c::dim, c::dim] = P
+    return out
+
+
+class Transfer:
+    """Grid transfer between a space on a quadrilateral or hexahedral mesh
+    and the same space on the coarsened mesh.
+
+    Scalar degree-1 spaces: interpolation is translation-invariant on a
+    uniform mesh, so prolongation / restriction are one dilated / strided
+    convolution with the separable Q1 hat kernel, the outer power of
+    (0.5, 1, 0.5) over the grid axes (zero padding clips at the boundary).
+
+    Degree 2 and vector spaces (the reference's gather/scatter path): the
+    fine node grid is that of a virtual degree-2d space on the coarse
+    mesh, so prolongation gathers the coarse coefficients per coarse cell,
+    applies one cell matrix (the coarse basis at the (2d+1)**ndim fine
+    nodes of the cell, component by component on vector spaces), scatters
+    into the virtual space and divides by the number of cells sharing each
+    node; restriction is its transpose.  Gather and scatter are one
+    indexing operation each (``_index_maps``)."""
 
     def __init__(self, fine_space):
-        if (fine_space.degree != 1 or fine_space.dim is not None
-                or fine_space.mesh.cell not in ("quad", "hex")):
+        if fine_space.mesh.cell not in ("quad", "hex"):
             raise NotImplementedError(
-                "only scalar Q1 transfers (quad, hex) are ported yet")
+                "only quadrilateral and hexahedral transfers are ported")
         mesh_c = fine_space.mesh.coarsen()
         self.fine = fine_space
         self.ndim = fine_space.ndim
@@ -79,7 +138,26 @@ class Transfer:
         dtype, dev = fine_space.mesh.dtype, fine_space.mesh.device
         Pk = _child_embedding(fine_space.mesh.cell, fine_space.degree,
                               self.ndim)
+        if fine_space.dim is not None:
+            Pk = np.stack([_vec_block(p, fine_space.dim) for p in Pk])
         self._P_child = torch.as_tensor(Pk, dtype=dtype, device=dev)
+        self.conv = fine_space.degree == 1 and fine_space.dim is None
+        if not self.conv:
+            # virtual degree-2d space on the coarse mesh: the fine grid
+            self.virt = FunctionSpace(mesh_c, degree=2 * fine_space.degree,
+                                      dim=fine_space.dim)
+            if self.virt.grid_shape != fine_space.grid_shape:
+                raise ValueError("the mesh does not coarsen evenly")
+            P = _cell_prolongation(fine_space.mesh.cell, fine_space.degree,
+                                   self.ndim)
+            self._P_cell = torch.as_tensor(P, dtype=dtype, device=dev)
+            self._gi_coarse, self._si_coarse = _index_maps(self.coarse, dev)
+            self._gi_virt, self._si_virt = _index_maps(self.virt, dev)
+            ones = torch.ones((mesh_c.n_cells, self.virt.nloc), dtype=dtype,
+                              device=dev)
+            # multiplicity grid: the number of coarse cells at each node
+            self.mult = _scatter_add(self._si_virt, ones, self.virt)
+            return
         # separable Q1 hat kernel: coarse basis at fine-node offsets
         k1 = np.array([0.5, 1.0, 0.5])
         kap = k1
@@ -106,7 +184,32 @@ class Transfer:
         rdt = x.real.dtype if x.is_complex() else x.dtype
         return self._kappa.to(rdt)[None, None]
 
+    # -- gather / scatter path (degree 2, vector spaces) ---------------------
+    def _cellwise(self, M, xe):
+        """Apply the scalar cell matrix M to gathered coefficients
+        (component by component on vector spaces)."""
+        sp = self.fine
+        M = M.to(xe.dtype)
+        if sp.dim is None:
+            return torch.einsum("fa,...ea->...ef", M, xe)
+        xs = xe.reshape(tuple(xe.shape[:-1]) + (-1, sp.dim))
+        out = torch.einsum("fa,...eac->...efc", M, xs)
+        return out.reshape(tuple(out.shape[:-2]) + (-1,))
+
+    def prolong_slow(self, xc):
+        xf = self._cellwise(self._P_cell,
+                            _gather(self._gi_coarse, xc, self.coarse))
+        return _scatter_add(self._si_virt, xf, self.virt) / self.mult
+
+    def restrict_slow(self, rf):
+        re = _gather(self._gi_virt, rf / self.mult, self.virt)
+        return _scatter_add(self._si_coarse,
+                            self._cellwise(self._P_cell.T, re), self.coarse)
+
+    # -- convolution path (scalar degree 1) ----------------------------------
     def prolong(self, xc):
+        if not self.conv:
+            return self.prolong_slow(xc)
         cg = self.coarse.grid_shape
         batch = tuple(xc.shape[:xc.dim() - self.ndim])
         xb = xc.reshape((-1, 1) + cg)
@@ -116,6 +219,8 @@ class Transfer:
         return out.reshape(batch + self.fine.grid_shape)
 
     def restrict(self, rf):
+        if not self.conv:
+            return self.restrict_slow(rf)
         fg = self.fine.grid_shape
         batch = tuple(rf.shape[:rf.dim() - self.ndim])
         rb = rf.reshape((-1, 1) + fg)
@@ -192,6 +297,7 @@ class MGConfig:
             self.spaces.append(sp)
             n_levels += 1
 
+        # coarse masks: every other node (all components on vector spaces)
         half = (slice(None, None, 2),) * space.ndim
         self.masks = [mask]
         for _ in self.transfers:
@@ -214,17 +320,18 @@ class MGConfig:
         for tr in self.transfers:
             As.append(tr.galerkin(As[-1]))
         ops = self._ops(As)
+        vec = self.spaces[0].dim is not None
         Ws, diags, dinvs, lams = [], [], [], []
         for A_l, sp_l, mk in zip(As, self.spaces, self.masks):
             w = node_stencil(A_l, sp_l, mask=mk)
             Ws.append(w)
-            d = stencil_diag(w, nd=sp_l.ndim)
+            d = stencil_diag(w, vec, nd=sp_l.ndim)
             d = torch.where(d == 0, 1.0, d)
             diags.append(d)
             dinvs.append(1.0 / d)
-            ratio = stencil_abs_rowsum(w, nd=sp_l.ndim) / torch.abs(d)
-            lams.append(torch.amax(ratio,
-                                   dim=tuple(range(-sp_l.ndim, 0))))
+            ratio = stencil_abs_rowsum(w, vec, nd=sp_l.ndim) / torch.abs(d)
+            lams.append(torch.amax(
+                ratio, dim=tuple(range(-len(sp_l.grid_shape), 0))))
         # coarsest solve as a precomputed dense inverse
         Ainv = _dense_inv(ops[-1].to_dense())
         return {"Ws": Ws, "diags": diags, "dinvs": dinvs,
@@ -254,6 +361,7 @@ class MGConfig:
         theta, delta = self._bounds(params["lams"][..., lvl])
         deg = self.spaces[lvl].degree
         nd = self.spaces[lvl].ndim
+        # real fields K2 (K5 in 3-D), complex K3, 2-D vector fields K4
         x, r = fused_cheb_smooth(w, dinv, b, x, self.pre, theta, delta,
                                  deg, want_residual=True,
                                  weight_dtype=self.weight_dtype, nd=nd)

@@ -7,7 +7,11 @@ its local matrices, and the preconditioner state of
 with ``Ws``, ``dinvs``, ``lams``, ``Ainv``, ``wF``, ``wS`` ...), which the
 port's ``construct_pc(..., prebuilt=state)`` accepts.  Complex leaves may
 arrive as complex arrays or as the reference's ``{"__complex__": (re, im)}``
-pairs; both become complex tensors.
+pairs; both become complex tensors.  Fields of any layout pass through
+``to_torch`` unchanged in shape: scalar (n, ny, nx) and vector
+(n, ny, nx, dim) stacks alike.  ``carry_state`` starts a port problem from
+the JAX package's solution arrays (v, zeta and, on the incompressible
+problems, p and mu).
 """
 
 import numpy as np
@@ -54,3 +58,23 @@ def local_op(A, space):
     """A LocalOp on ``space`` from reference local matrices (E|1, b, a),
     on the space's device and dtype."""
     return LocalOp(to_tensor(A, space.device, space.dtype), space, space)
+
+
+def carry_state(ctl, *, v=None, zeta=None, p=None, mu=None):
+    """Set the state of the port's problem ``ctl`` from arrays of the JAX
+    package: ``v`` and ``zeta`` (n_t, *grid of the velocity space), and on
+    the incompressible problems ``p`` and ``mu`` (n_t - 1 Crank-Nicolson
+    blocks on the pressure space).  Goes through the problem's setters, so
+    boundary values are re-imposed and a shape that does not fit raises
+    ``ValueError``."""
+    from ..fem.space import MixedFunction
+    for value, setter, space in ((v, ctl.set_v, ctl._space_v),
+                                 (zeta, ctl.set_zeta, ctl._space_v),
+                                 (p, ctl.set_p, ctl._space_p),
+                                 (mu, ctl.set_mu, ctl._space_p)):
+        if value is None:
+            continue
+        if space is None:
+            raise ValueError("Undefined space_p: unable to assign value")
+        data = to_tensor(value, space.device, space.dtype)
+        setter(MixedFunction(space, data.shape[0], data=data))
