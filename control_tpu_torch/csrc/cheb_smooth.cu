@@ -6,7 +6,8 @@
 // TPU kernel, K2), control_tpu/ops/stencil.py:_fused_cheb_complex (the
 // re/im-plane TPU kernel, K3) and control_tpu/ops/stencil.py:_fused_cheb_nd3
 // (the whole-volume 3-D TPU kernel in C x C coupled real form, K5, here for
-// C = 1 real and C = 2 complex).  All compute, per batch entry i with
+// C = 1 real and C = 2 complex, degree 1 (K = 27) and degree 2 (K = 125);
+// C = dim = 3 is cheb_smooth_vector.cu).  All compute, per batch entry i with
 // sigma = theta_i / delta_i:
 //
 //   step 0:   r = b - A x0;  p = (r * dinv) / theta;  x = x0 + p
@@ -170,6 +171,10 @@ int dispatch(const void* w, long long w_bstride, const void* dinv,
                             stream);
     if (nd == 3 && degree == 1)
         return run<3, 1, V>(wv, w_bstride, dv, d_bstride, bv, xv, th, de,
+                            th_stride, xo, xt, pv, rv, n, nz, ny, nx, steps,
+                            stream);
+    if (nd == 3 && degree == 2)
+        return run<3, 2, V>(wv, w_bstride, dv, d_bstride, bv, xv, th, de,
                             th_stride, xo, xt, pv, rv, n, nz, ny, nx, steps,
                             stream);
     return (int)cudaErrorInvalidValue;

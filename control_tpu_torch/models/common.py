@@ -53,7 +53,8 @@ class BlockSolver:
             return self.config.apply(self.params, b, cycles=self.kind[1])
         if self.kind[0] == "cheb":
             # the krylov.chebyshev recurrence as one fused smoothing call
-            # (kernel K2 on the card; K4 on 2-D vector spaces; K5 in 3-D)
+            # (kernel K2 on the card; K5 in 3-D; K4 / K5v on 2-D / 3-D
+            # vector spaces)
             _, bounds, iters = self.kind
             theta = 0.5 * (bounds[1] + bounds[0])
             delta = 0.5 * (bounds[1] - bounds[0])

@@ -24,7 +24,8 @@ hexahedra, and vector spaces with the sequential sweeps.
 
 The incompressible solve nests this preconditioner: five fixed GMRES
 iterations on the space-time velocity KKT system, preconditioned as above
-on the vector space (mass solves and V-cycle smoothing: kernel K4), and a
+on the vector space (mass solves and V-cycle smoothing: kernel K4, K5v on
+hexahedra), and a
 per-time-block pressure Schur part K_p^{-1} (KKT_p) M_p^{-1} with the
 1/tau^2 scaling and the T sandwiches (the M_p solve: kernel K2).
 """
@@ -94,7 +95,7 @@ class _SweepSolver:
     u_i = V-cycle_i(b_i - S_i u_{i-1}), one time block after another, with
     per-time-block multigrid hierarchies built once (batched when the
     blocks differ).  The sub-diagonal action is a node stencil (K1; K6 in
-    3-D), the V-cycle smoothing real (K2; K5 in 3-D; K4 on 2-D vector
+    3-D), the V-cycle smoothing real (K2; K5 in 3-D; K4 / K5v on vector
     spaces)."""
 
     def __init__(self, space, mask, diag_A, sub_A, cycles=1, state=None):

@@ -123,6 +123,12 @@ def library():
                                            vp, vp, i32, vp, vp, vp, vp, i32,
                                            i32, i32, i32, i32, vp]
         lib.cheb_smooth_vector.restype = i32
+        # (..., n, nz, ny, nx, degree, steps, stream)
+        lib.cheb_smooth_vector3d.argtypes = [i32, vp, i64, vp, i64, vp, vp,
+                                             vp, vp, i32, vp, vp, vp, vp,
+                                             i32, i32, i32, i32, i32, i32,
+                                             vp]
+        lib.cheb_smooth_vector3d.restype = i32
         _lib = lib
     return _lib
 

@@ -21,8 +21,11 @@ operations of the preconditioner on the card:
   V-cycles);
 * K3 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on complex fields: the same
   recurrence for the ParaDiag frequency blocks;
-* K4 ``fused_cheb_smooth`` on real 2-D vector fields with dim = 2: the
-  velocity mass solves and V-cycles of the incompressible problems.
+* K4 (2-D, dim = 2) and K5v (3-D, dim = 3) ``fused_cheb_smooth`` on real
+  vector fields: the velocity mass solves and V-cycles of the
+  incompressible problems.
+
+The 3-D kernels take degree 1 (K = 27) and degree 2 (K = 125) stencils.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs the
 plain PyTorch version beside it (``_apply_plain``, ``_cheb_plain``), a CUDA
@@ -42,11 +45,19 @@ import torch
 from . import kernels
 
 # kernel launches per wrapper (one per call that reaches the card): K1,
-# K2, K3, K4 on 2-D grids, K6 and K5 (real, complex) on 3-D grids
+# K2, K3, K4 on 2-D grids; K6 and K5 (real, complex) on 3-D grids, at
+# degree 1 and (the ``_q2`` keys) degree 2; K5v on 3-D vector fields
 launch_counts = {"stencil_apply": 0, "cheb_smooth_real": 0,
                  "cheb_smooth_complex": 0, "cheb_smooth_vector": 0,
                  "stencil_apply_3d": 0, "cheb_smooth_3d_real": 0,
-                 "cheb_smooth_3d_complex": 0}
+                 "cheb_smooth_3d_complex": 0, "stencil_apply_3d_q2": 0,
+                 "cheb_smooth_3d_real_q2": 0,
+                 "cheb_smooth_3d_complex_q2": 0, "cheb_smooth_3d_vector": 0}
+
+# the vector apply forms its products one leading window offset at a time
+# when all K of them at once would take more than this (the 3-D Q2 weight
+# set times a field is 323 MB per batch entry in float64 at 33^3 nodes)
+_APPLY_CHUNK_BYTES = 1 << 30
 
 
 def reset_launch_counts():
@@ -176,12 +187,18 @@ def _is_vector_stencil(w, nd=2):
     return w.dim() >= nd + 3
 
 
+def _key_3d(base, degree):
+    """The launch-count key of a 3-D scalar kernel at ``degree``."""
+    return base + ("_q2" if degree == 2 else "")
+
+
 def _apply_plain(w, x, degree, nd=2):
     """Plain PyTorch K1/K6: zero-pad x, then K shifted multiply-adds (the
     reference's ``_apply_xla``; dimension-generic).  A vector stencil
     (w (..., K, *nodes, dim, dim), x (..., *nodes, dim)) multiplies each
     shifted field by its coupling block and sums over offsets and
-    components in one reduction."""
+    components in one reduction (one per leading window offset where the
+    product would exceed ``_APPLY_CHUNK_BYTES``)."""
     d = degree
     if _is_vector_stencil(w, nd):
         dim = x.shape[-1]
@@ -198,10 +215,24 @@ def _apply_plain(w, x, degree, nd=2):
                         + tuple(range(lead, lead + nd + 1)))
         wk = w.reshape(tuple(w.shape[:w.dim() - (nd + 3)])
                        + (2 * d + 1,) * nd + nodes + (dim, dim))
-        # (..., k_1..k_nd, *nodes, r, c) summed over the offsets and c
-        prod = wk * xs.unsqueeze(-2)
-        first = prod.dim() - (2 * nd + 2)
-        return prod.sum(dim=tuple(range(first, first + nd)) + (-1,))
+        xs = xs.unsqueeze(-2)
+
+        def terms(wk_, xs_):
+            # (..., k_1..k_nd, *nodes, r, c) summed over the offsets and c
+            prod = wk_ * xs_
+            first = prod.dim() - (2 * nd + 2)
+            return prod.sum(dim=tuple(range(first, first + nd)) + (-1,))
+
+        size = (math.prod(torch.broadcast_shapes(wk.shape, xs.shape))
+                * x.element_size())
+        if size <= _APPLY_CHUNK_BYTES:
+            return terms(wk, xs)
+        ax = -(2 * nd + 2)                   # the first window axis
+        out = None
+        for j in range(2 * d + 1):
+            part = terms(wk.narrow(ax, j, 1), xs.narrow(ax, j, 1))
+            out = part if out is None else out + part
+        return out
     grid = x.shape[-nd:]
     full = (slice(None),) * nd
     xp = torch.nn.functional.pad(x, (d, d) * nd)
@@ -216,12 +247,12 @@ def _apply_plain(w, x, degree, nd=2):
 
 def _cuda_grid(w, x, degree, nd, what):
     """Checks shared by the CUDA wrappers: a scalar stencil of degree 1 or
-    2 in 2-D, degree 1 in 3-D (the kernels built), one dtype and device,
-    weights (K, *grid) or (nw, K, *grid).  Returns the grid shape."""
+    2 in 2-D or 3-D (the kernels built), one dtype and device, weights
+    (K, *grid) or (nw, K, *grid).  Returns the grid shape."""
     if nd not in (2, 3) or _is_vector_stencil(w, nd):
         raise NotImplementedError(
             f"{what}: only scalar 2-D and 3-D stencils have a CUDA kernel")
-    if degree not in ((1, 2) if nd == 2 else (1,)):
+    if degree not in (1, 2):
         raise NotImplementedError(
             f"{what}: no CUDA kernel for degree {degree} in {nd}-D")
     if w.dtype != x.dtype or w.device != x.device:
@@ -269,7 +300,8 @@ def _apply_cuda(w, x, degree, nd):
         y.data_ptr(), max(n, 1), *_zyx(grid), nd, degree,
         kernels.stream_ptr(x.device))
     kernels.check(code, "stencil_apply")
-    launch_counts["stencil_apply_3d" if nd == 3 else "stencil_apply"] += 1
+    launch_counts[_key_3d("stencil_apply_3d", degree) if nd == 3
+                  else "stencil_apply"] += 1
     return y
 
 
@@ -278,8 +310,8 @@ def apply_stencil(w, x, degree, nd=2):
 
     w: (K, *grid) or (n, K, *grid); x: (*grid) or (n, *grid) -- the batch
     dims broadcast (shared weights across a time batch are fine).  A CUDA
-    tensor with a scalar stencil runs kernel K1 (2-D) or K6 (3-D, real,
-    degree 1); a CPU tensor runs ``_apply_plain``.  Vector stencils
+    tensor with a scalar stencil runs kernel K1 (2-D) or K6 (3-D, real);
+    a CPU tensor runs ``_apply_plain``.  Vector stencils
     (w (..., K, *nodes, dim, dim), x (..., *nodes, dim)) have no TPU kernel
     in the JAX package and so none here: they run ``_apply_plain`` on
     every device.
@@ -413,29 +445,31 @@ def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
         *_zyx(grid), nd, degree, int(steps), kernels.stream_ptr(b.device))
     kernels.check(code, "cheb_smooth")
     kind = "complex" if b.is_complex() else "real"
-    launch_counts[f"cheb_smooth_3d_{kind}" if nd == 3
+    launch_counts[_key_3d(f"cheb_smooth_3d_{kind}", degree) if nd == 3
                   else f"cheb_smooth_{kind}"] += 1
     return (x_out, r) if want_residual else x_out
 
 
 def _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta, degree,
                       want_residual, nd):
-    """K4: the recurrence on a real 2-D vector field with dim = 2.  w:
-    (K, ny, nx, 2, 2) or (n, K, ny, nx, 2, 2); dinv/b/x0: (ny, nx, 2) or
-    (n, ny, nx, 2).  The kernel reads a field as one pair per node and a
-    coupling block as four consecutive reals, which is the layout of the
-    contiguous tensors."""
+    """K4 and K5v: the recurrence on a real vector field, 2-D with dim = 2
+    (K4) or 3-D with dim = 3 (K5v).  w: (K, *nodes, dim, dim) or
+    (n, K, *nodes, dim, dim); dinv/b/x0: (*nodes, dim) or
+    (n, *nodes, dim).  The kernels read a field as ``dim`` consecutive
+    reals per node and a coupling block as dim * dim consecutive reals,
+    which is the layout of the contiguous tensors."""
     what = "fused_cheb_smooth (vector)"
-    if nd != 2 or tuple(w.shape[-2:]) != (2, 2):
+    if (nd, tuple(w.shape[-2:])) not in ((2, (2, 2)), (3, (3, 3))):
         raise NotImplementedError(
-            f"{what}: only 2-D vector stencils with dim = 2 have a CUDA "
-            "kernel")
+            f"{what}: only 2-D vector stencils with dim = 2 and 3-D ones "
+            "with dim = 3 have a CUDA kernel")
+    dim = nd
     if b.is_complex() or w.is_complex():
         raise NotImplementedError(
             f"{what}: complex vector fields have no CUDA kernel")
-    if b.dim() not in (3, 4):
+    if b.dim() not in (nd + 1, nd + 2):
         raise NotImplementedError(
-            f"{what}: b must be (ny, nx, 2) or (n, ny, nx, 2)")
+            f"{what}: b must be (*nodes, {dim}) or (n, *nodes, {dim})")
     if degree not in (1, 2):
         raise NotImplementedError(
             f"{what}: no CUDA kernel for degree {degree}")
@@ -444,20 +478,20 @@ def _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta, degree,
         if t.dtype != dt or t.device != b.device:
             raise TypeError(f"{what}: w, dinv, b, x0 need one dtype and "
                             "device")
-    nodes = tuple(b.shape[-3:-1])
-    field = nodes + (2,)
-    K = (2 * degree + 1) ** 2
-    if tuple(w.shape[-5:-2]) != (K,) + nodes or w.dim() not in (5, 6) \
-            or b.shape[-1] != 2:
+    nodes = tuple(b.shape[-(nd + 1):-1])
+    field = nodes + (dim,)
+    K = (2 * degree + 1) ** nd
+    if (tuple(w.shape[-(nd + 3):-2]) != (K,) + nodes
+            or w.dim() not in (nd + 3, nd + 4) or b.shape[-1] != dim):
         raise ValueError(f"{what}: weight shape mismatch")
-    lead = tuple(b.shape[:-3])
+    lead = tuple(b.shape[:-(nd + 1)])
     n = math.prod(lead)
-    nw = math.prod(w.shape[:-5])
+    nw = math.prod(w.shape[:-(nd + 3)])
     if nw not in (1, n):
         raise ValueError(f"{what}: stencil batch mismatch")
-    w_bs = K * math.prod(nodes) * 4 if nw == n and n > 1 else 0
+    w_bs = K * math.prod(nodes) * dim * dim if nw == n and n > 1 else 0
     # dinv: one shared field (stride 0) or one per batch entry
-    if math.prod(dinv.shape[:-3]) == 1:
+    if math.prod(dinv.shape[:-(nd + 1)]) == 1:
         dc, d_bs = dinv.reshape(field).contiguous(), 0
     else:
         dc, d_bs = dinv.expand(lead + field).contiguous(), math.prod(field)
@@ -474,15 +508,18 @@ def _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta, degree,
     p = torch.empty_like(bc)
     r = torch.empty_like(bc) if want_residual else None
     lib = kernels.library()
-    code = lib.cheb_smooth_vector(
-        kernels.DTYPE_CODES[dt], w.contiguous().data_ptr(), w_bs,
-        dc.data_ptr(), d_bs, bc.data_ptr(), xc.data_ptr(), th.data_ptr(),
-        de.data_ptr(), th_s, x_out.data_ptr(), x_tmp.data_ptr(),
-        p.data_ptr(), None if r is None else r.data_ptr(), max(n, 1),
-        nodes[0], nodes[1], degree, int(steps),
-        kernels.stream_ptr(b.device))
-    kernels.check(code, "cheb_smooth_vector")
-    launch_counts["cheb_smooth_vector"] += 1
+    args = (kernels.DTYPE_CODES[dt], w.contiguous().data_ptr(), w_bs,
+            dc.data_ptr(), d_bs, bc.data_ptr(), xc.data_ptr(), th.data_ptr(),
+            de.data_ptr(), th_s, x_out.data_ptr(), x_tmp.data_ptr(),
+            p.data_ptr(), None if r is None else r.data_ptr(), max(n, 1),
+            *nodes, degree, int(steps), kernels.stream_ptr(b.device))
+    if nd == 2:
+        kernels.check(lib.cheb_smooth_vector(*args), "cheb_smooth_vector")
+        launch_counts["cheb_smooth_vector"] += 1
+    else:
+        kernels.check(lib.cheb_smooth_vector3d(*args),
+                      "cheb_smooth_vector3d")
+        launch_counts["cheb_smooth_3d_vector"] += 1
     return (x_out, r) if want_residual else x_out
 
 
@@ -497,8 +534,9 @@ def fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta, degree,
     (n, K, *nodes, dim, dim) and fields (*nodes, dim) or (n, *nodes, dim),
     with dinv per component.  On a CUDA tensor, real fields run kernel K2
     (2-D) or K5 (3-D), complex fields (the ParaDiag frequency blocks) K3
-    (2-D) or K5 (3-D), real 2-D vector fields with dim = 2 kernel K4 (other
-    vector fields raise ``NotImplementedError``); CPU tensors run
+    (2-D) or K5 (3-D), real 2-D vector fields with dim = 2 kernel K4 and
+    real 3-D ones with dim = 3 kernel K5v (other vector fields raise
+    ``NotImplementedError``); CPU tensors run
     ``_cheb_plain``.  ``weight_dtype`` (e.g. "bfloat16") rounds the weight
     and diagonal planes through a narrower dtype; only the plain version
     implements it.  Returns x (and r = b - A x).

@@ -12,8 +12,9 @@ so:
 * restriction   R  = P^T (a strided convolution for scalar Q1),
 * coarse operators by Galerkin RAP computed directly on per-cell local
   matrices,
-* Chebyshev-Jacobi smoothing (kernels K2/K3 on the card, K4 on 2-D vector
-  spaces, K5 on 3-D grids) with Gershgorin bounds from the node stencils,
+* Chebyshev-Jacobi smoothing (kernels K2/K3 on the card, K5 on 3-D grids,
+  K4 / K5v on 2-D / 3-D vector spaces) with Gershgorin bounds from the
+  node stencils,
 * a dense inverse on the coarsest level.
 
 Hierarchies take leading batch axes on the fine local matrices: one
@@ -361,7 +362,8 @@ class MGConfig:
         theta, delta = self._bounds(params["lams"][..., lvl])
         deg = self.spaces[lvl].degree
         nd = self.spaces[lvl].ndim
-        # real fields K2 (K5 in 3-D), complex K3, 2-D vector fields K4
+        # real fields K2 (K5 in 3-D), complex K3, vector fields K4 (K5v
+        # in 3-D)
         x, r = fused_cheb_smooth(w, dinv, b, x, self.pre, theta, delta,
                                  deg, want_residual=True,
                                  weight_dtype=self.weight_dtype, nd=nd)

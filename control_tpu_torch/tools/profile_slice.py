@@ -18,7 +18,10 @@ in turns within one call on one card):
         FGMRES iterations (a whole solve is millions of launches), with the
         device time of K4 and of the multigrid transfers (every kernel
         launched inside ``Transfer.prolong`` / ``restrict``) beside the
-        busy share.
+        busy share;
+    python3 control_tpu_torch/tools/profile_slice.py profile stokes3d
+        the same for the 3-D Stokes slice (Taylor-Hood Q2-Q1 on 16^3
+        hexahedra x 8, f64, scan), with K5v's device time.
 
     python3 control_tpu_torch/tools/profile_slice.py history stokes \
             float32|float64 [n n_t [iterations]]
@@ -53,6 +56,11 @@ import chip_smoke  # noqa: E402  (the checkout's own problem definitions)
 SOLVER_PARAMETERS = chip_smoke.SOLVER_PARAMETERS
 SLICES = {"flagship": ((256, 64), (0.25, 2.25), "heat_problem"),
           "heat3d": ((64, 16), (0.125, 3.375), "heat3d_problem")}
+STOKES_SLICES = {
+    "stokes": ((chip_smoke.STOKES["n"], chip_smoke.STOKES["n_t"]),
+               "stokes_problem", chip_smoke.LAMBDA_STOKES),
+    "stokes3d": ((chip_smoke.STOKES3D["n"], chip_smoke.STOKES3D["n_t"]),
+                 "stokes3d_problem", chip_smoke.LAMBDA_STOKES3D)}
 
 
 WINDOW_ITERATIONS = 2
@@ -63,10 +71,9 @@ def problem(name):
     Stokes a window of ``WINDOW_ITERATIONS`` outer iterations, which does
     not converge and says so instead of raising)."""
     dev = torch.device("cuda", 0)
-    if name == "stokes":
-        ctl = chip_smoke.stokes_problem(chip_smoke.STOKES["n"],
-                                        chip_smoke.STOKES["n_t"],
-                                        torch.float64, dev)
+    if name in STOKES_SLICES:
+        size, maker, lambdas = STOKES_SLICES[name]
+        ctl = getattr(chip_smoke, maker)(*size, torch.float64, dev)
         window = dict(chip_smoke.STOKES_PARAMETERS, preconditioner=True,
                       maximum_iterations=WINDOW_ITERATIONS)
 
@@ -74,7 +81,7 @@ def problem(name):
             from control_tpu_torch import ConstantNullspace
             return ctl.incompressible_linear_solve(
                 ConstantNullspace(), solver_parameters=parameters,
-                print_error=False, **chip_smoke.LAMBDA_STOKES)
+                print_error=False, **lambdas)
         return ctl, solve, lambda: solve(window)
     (n, n_t), bounds, maker = SLICES[name]
     ctl = getattr(chip_smoke, maker)(n, n_t, torch.float32, dev, "paradiag")
@@ -212,6 +219,9 @@ def profile(name):
             "k4_device_ms": ms(e for e in kernels
                                if "vector_step_kernel" in e.name
                                or "vector_residual_kernel" in e.name),
+            "k5v_device_ms": ms(e for e in kernels
+                                if "vector3_step_kernel" in e.name
+                                or "vector3_residual_kernel" in e.name),
             "mg_transfer_device_ms": ms(e for e in kernels if in_range(e)),
             "device_ms_by_kernel": top}
 
@@ -342,7 +352,7 @@ def main(argv):
     if argv[:1] == ["kernels2d"]:
         out = kernels2d()
     elif argv[:1] == ["profile"] and len(argv) == 2 and (
-            argv[1] in SLICES or argv[1] == "stokes"):
+            argv[1] in SLICES or argv[1] in STOKES_SLICES):
         out = profile(argv[1])
     elif (argv[:2] == ["history", "stokes"] and len(argv) in (3, 5, 6)
           and argv[2] in ("float32", "float64")):

@@ -8,8 +8,8 @@ with ``Ws``, ``dinvs``, ``lams``, ``Ainv``, ``wF``, ``wS`` ...), which the
 port's ``construct_pc(..., prebuilt=state)`` accepts.  Complex leaves may
 arrive as complex arrays or as the reference's ``{"__complex__": (re, im)}``
 pairs; both become complex tensors.  Fields of any layout pass through
-``to_torch`` unchanged in shape: scalar (n, ny, nx) and vector
-(n, ny, nx, dim) stacks alike.  ``carry_state`` starts a port problem from
+``to_torch`` unchanged in shape: scalar (n, [nz,] ny, nx) and vector
+(n, [nz,] ny, nx, dim) stacks alike.  ``carry_state`` starts a port problem from
 the JAX package's solution arrays (v, zeta and, on the incompressible
 problems, p and mu).
 """
