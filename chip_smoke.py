@@ -16,9 +16,12 @@ which raises (and the script exits non-zero) on failure:
    applications K1/K6, <= 1e-4 for the smoothers K2/K3/K4/K5: the summation
    order differs), and times both with CUDA events: K1-K3 at the 2-D
    flagship's shapes, K6 and K5 (real, complex) at heat3d's, K4 at the
-   Stokes path's (the velocity mass solve and the two smoothed V-cycle
-   levels), K5v (3-D vector fields, dim = 3) at the stokes3d path's, K5
-   (real, complex) and K6 at degree 2 at heat3d_q2's;
+   Stokes path's (the velocity mass solve, a ragged batch of nine fields
+   and the two smoothed V-cycle levels), K5v (3-D vector fields, dim = 3)
+   at the stokes3d path's (the same four kinds of call), K5 (real,
+   complex) and K6 at degree 2 at heat3d_q2's; the K4 and K5v rows print
+   the floor of their design (one weight pass per step for the whole
+   batch) beside the bound;
 4. the 2-D slice: a small float64 solve on the card against the same solve
    on the CPU (plain versions), then the flagship heat-control KKT solve
    (Q1 256^2 x 64, Crank-Nicolson, ParaDiag Schur sweeps, GMRES(10), rtol
@@ -99,6 +102,12 @@ PLAIN_REPEATS_3D = 3
 # float32 FLOP/s outside the tensor cores; float64 runs at half the rate
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 33.5e12}
+# the H100's 50 MB L2 (NVIDIA data sheet) and the read rate assumed for
+# it in the design floor of K4 and K5v, about 6 TB/s: not a published
+# figure, but what K4's earlier one-entry-a-thread design moved from L2 on
+# the card (8.25 GB of weights in 1.34 ms)
+L2_BYTES = 50e6
+L2_BYTES_S = 6e12
 SOLVER_PARAMETERS = {"linear_solver": "gmres", "gmres_restart": 10,
                      "maximum_iterations": 50, "relative_tolerance": 1.0e-6,
                      "absolute_tolerance": 0.0,
@@ -155,6 +164,32 @@ def bound(nbytes, flops, dtype):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def vector_batch_width(nd, dtype, n):
+    """The batch width K4 (nd = 2) and K5v (nd = 3) run for n fields with
+    shared weights, as ``pick`` in csrc/cheb_smooth_vector.cu chooses it."""
+    if n <= 1:
+        return 1
+    if nd == 3:
+        return 2 if n <= 2 else 4 if n <= 4 else 8
+    # the fewest padded entries, the larger width on a tie
+    return min((8, 4, 2) if dtype == "float64" else (4, 2),
+               key=lambda nb: -(-n // nb) * nb)
+
+
+def design_floor(w, n, passes, width):
+    """The least time (ms) of K4's and K5v's design at these inputs: every
+    weight read once per step for the whole batch (``passes`` = steps, +1
+    for the residual).  Each chunk of ``width`` batch entries reads the
+    weight set from L2 (at the assumed ``L2_BYTES_S``); a set larger than
+    the L2 streams from HBM once a pass."""
+    wb = nbytes(w)
+    chunks = -(-max(n, 1) // width)
+    t_l2 = passes * chunks * wb / L2_BYTES_S
+    if wb <= L2_BYTES:
+        return t_l2 * 1e3
+    return max(passes * wb / HBM_BYTES_S, t_l2) * 1e3
 
 
 def nbytes(*tensors):
@@ -252,10 +287,15 @@ def check_row(name, dtype, shape, got, ref, kernel_fn, plain_fn, work,
 def report(results):
     for kname, rows in results.items():
         for r in rows:
+            floor = (f", design floor {r['design_floor_ms']:.4f} ms "
+                     f"(chunks of {r['batch_width']}, L2 at an assumed "
+                     f"{L2_BYTES_S / 1e12:g} TB/s)"
+                     if "design_floor_ms" in r else "")
             print(f"{kname} {r['dtype']} {r['shape']}: rel err "
                   f"{r['max_rel_err']:.3e} (tol {r['tol']:.0e}), kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}){floor}",
+                  flush=True)
             if not r["max_rel_err"] <= r["tol"]:
                 raise AssertionError(f"{kname} disagrees with its plain "
                                      f"version: {r}")
@@ -352,6 +392,11 @@ def check_kernels(dev, record):
                 (nbytes(wt, dt_, bt, xt, th, de, bt, bt),
                  cheb_flops(3 ** nd, bt, steps, True)), steps=steps))
 
+        def floor(nd, wt, nb, passes):
+            width = vector_batch_width(nd, name, nb)
+            return dict(batch_width=width,
+                        design_floor_ms=design_floor(wt, nb, passes, width))
+
         def vector_cheb_check(grid, nb, steps, residual):
             # shared Q2 weights (K = 25) and dinv, scalar bounds: the
             # velocity mass solve (a batch, x0 = 0, no residual) and the
@@ -374,7 +419,8 @@ def check_kernels(dev, record):
             results["K4"].append(check_row(
                 "K4", name, bt.shape, kern(), plain(), kern, plain,
                 (nbytes(wt, dt_, bt, x0, *outs),
-                 cheb_flops(25, bt, steps, residual, dim=2)), steps=steps))
+                 cheb_flops(25, bt, steps, residual, dim=2)), steps=steps,
+                **floor(2, wt, nb, steps + int(residual))))
 
         def vector3_cheb_check(grid, nb, steps, residual, degree=2):
             # shared weights (K = 125 at degree 2) and dinv, scalar bounds:
@@ -401,7 +447,8 @@ def check_kernels(dev, record):
                 (nbytes(wt, dt_, bt, x0, *outs),
                  cheb_flops((2 * degree + 1) ** 3, bt, steps, residual,
                             dim=3)),
-                plain_repeats=PLAIN_REPEATS_3D, steps=steps, degree=degree))
+                plain_repeats=PLAIN_REPEATS_3D, steps=steps, degree=degree,
+                **floor(3, wt, nb, steps + int(residual))))
 
         def q2_apply_check(grid, nb):
             # one degree-2 application, shared weights
@@ -461,17 +508,21 @@ def check_kernels(dev, record):
         for gl in (65, 33, 17, 9):
             complex_cheb_check("K5c", (gl,) * 3, n3 // 2 + 1, 8)
         # K4: the mass solve (31, 129^2, 2), 20 steps; the V-cycle levels
-        # 129^2 and 65^2, 8 steps and the residual
+        # 129^2 and 65^2, 8 steps and the residual; a ragged batch of
+        # nine (the batch loop's chunks of eight), 20 steps
         vector_cheb_check((gs, gs), ns, 20, False)
         for gl in (gs, (gs + 1) // 2):
             vector_cheb_check((gl, gl), 0, 8, True)
+        vector_cheb_check((gs, gs), 9, 20, False)
         # K5v: the stokes3d mass solve (7, 33^3, 3), 20 steps; the V-cycle
         # levels 33^3 and 17^3, 8 steps and the residual; one degree-1
-        # (K = 27) case at the finest level's shape
+        # (K = 27) case at the finest level's shape; a ragged batch of
+        # nine, 20 steps
         vector3_cheb_check((g3v,) * 3, n3v, 20, False)
         for gl in (g3v, (g3v + 1) // 2):
             vector3_cheb_check((gl,) * 3, 0, 8, True)
         vector3_cheb_check((g3v,) * 3, 0, 8, True, degree=1)
+        vector3_cheb_check((g3v,) * 3, 9, 20, False)
         # degree 2 at heat3d_q2's shapes: K6 (15, 65^3); K5 real (15,
         # 65^3), 20 steps (the mass solve); K5 complex 8 frequencies, 8
         # steps, at every smoothed level

@@ -118,14 +118,15 @@ def library():
                                     i32, vp, vp, vp, vp, i32, i32, i32, i32,
                                     i32, i32, i32, vp]
         lib.cheb_smooth.restype = i32
-        # (..., n, ny, nx, degree, steps, stream)
+        # (..., th_stride, coef, x_out, x_tmp, p, r, n, ny, nx, degree,
+        # steps, stream)
         lib.cheb_smooth_vector.argtypes = [i32, vp, i64, vp, i64, vp, vp,
-                                           vp, vp, i32, vp, vp, vp, vp, i32,
-                                           i32, i32, i32, i32, vp]
+                                           vp, vp, i32, vp, vp, vp, vp, vp,
+                                           i32, i32, i32, i32, i32, vp]
         lib.cheb_smooth_vector.restype = i32
         # (..., n, nz, ny, nx, degree, steps, stream)
         lib.cheb_smooth_vector3d.argtypes = [i32, vp, i64, vp, i64, vp, vp,
-                                             vp, vp, i32, vp, vp, vp, vp,
+                                             vp, vp, i32, vp, vp, vp, vp, vp,
                                              i32, i32, i32, i32, i32, i32,
                                              vp]
         lib.cheb_smooth_vector3d.restype = i32

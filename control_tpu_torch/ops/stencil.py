@@ -457,7 +457,9 @@ def _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta, degree,
     (n, K, *nodes, dim, dim); dinv/b/x0: (*nodes, dim) or
     (n, *nodes, dim).  The kernels read a field as ``dim`` consecutive
     reals per node and a coupling block as dim * dim consecutive reals,
-    which is the layout of the contiguous tensors."""
+    which is the layout of the contiguous tensors.  The C entry point
+    picks the kernel's variant from the shape
+    (``csrc/cheb_smooth_vector.cu``)."""
     what = "fused_cheb_smooth (vector)"
     if (nd, tuple(w.shape[-2:])) not in ((2, (2, 2)), (3, (3, 3))):
         raise NotImplementedError(
@@ -505,14 +507,20 @@ def _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta, degree,
         th_s = 1
     x_out = torch.empty_like(bc)
     x_tmp = torch.empty_like(bc)
-    p = torch.empty_like(bc)
     r = torch.empty_like(bc) if want_residual else None
+    # scratch: p, then the recurrence's coefficients of steps 1 .. steps - 1
+    # per entry with bounds of its own, in one allocation
+    ne = max(n, 1) if th_s else 1
+    p = torch.empty(bc.numel() + 2 * max(int(steps) - 1, 1) * ne, dtype=dt,
+                    device=b.device)
+    p_ptr = p.data_ptr()
     lib = kernels.library()
     args = (kernels.DTYPE_CODES[dt], w.contiguous().data_ptr(), w_bs,
             dc.data_ptr(), d_bs, bc.data_ptr(), xc.data_ptr(), th.data_ptr(),
-            de.data_ptr(), th_s, x_out.data_ptr(), x_tmp.data_ptr(),
-            p.data_ptr(), None if r is None else r.data_ptr(), max(n, 1),
-            *nodes, degree, int(steps), kernels.stream_ptr(b.device))
+            de.data_ptr(), th_s, p_ptr + bc.numel() * p.element_size(),
+            x_out.data_ptr(), x_tmp.data_ptr(), p_ptr,
+            None if r is None else r.data_ptr(), max(n, 1), *nodes, degree,
+            int(steps), kernels.stream_ptr(b.device))
     if nd == 2:
         kernels.check(lib.cheb_smooth_vector(*args), "cheb_smooth_vector")
         launch_counts["cheb_smooth_vector"] += 1

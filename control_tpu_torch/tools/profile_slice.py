@@ -23,6 +23,16 @@ in turns within one call on one card):
         the same for the 3-D Stokes slice (Taylor-Hood Q2-Q1 on 16^3
         hexahedra x 8, f64, scan), with K5v's device time.
 
+    python3 <this checkout>/control_tpu_torch/tools/profile_slice.py vector
+        K4 and K5v at the shapes of their paths (the velocity mass solves,
+        a ragged batch of nine, the smoothed V-cycle levels) through the
+        public wrapper: the time of a call (CUDA events; the host's share
+        of a small level's call shows here), its device time (the
+        kernels' time in a torch.profiler trace) and, at the unbatched
+        V-cycle levels, the host's time a call (a CPU clock over
+        thousands of calls); the script of one checkout times the kernels
+        of whichever checkout it is run from: one JSON line.
+
     python3 control_tpu_torch/tools/profile_slice.py history stokes \
             float32|float64 [n n_t [iterations]]
         the Stokes solve's relative residual history within a budget of
@@ -178,6 +188,14 @@ def _in_range(cls, method, label):
     setattr(cls, method, ranged)
 
 
+# K4's and K5v's kernel names: this tree's, and those of trees before the
+# two shared one template (so that a run from an older checkout reads them)
+K4_NAMES = ("vector_cheb_kernel<2,", "vector_step_kernel",
+            "vector_residual_kernel")
+K5V_NAMES = ("vector_cheb_kernel<3,", "vector3_step_kernel",
+             "vector3_residual_kernel")
+
+
 def profile(name):
     from torch.profiler import profile as tprofile, ProfilerActivity
     from control_tpu_torch.solvers.multigrid import Transfer
@@ -217,13 +235,115 @@ def profile(name):
             "device_ms_over_unprofiled_window": device_ms / 1e3 / window_s,
             "device_kernels": n_kernels, "device_ms": device_ms,
             "k4_device_ms": ms(e for e in kernels
-                               if "vector_step_kernel" in e.name
-                               or "vector_residual_kernel" in e.name),
+                               if any(k in e.name for k in K4_NAMES)),
             "k5v_device_ms": ms(e for e in kernels
-                                if "vector3_step_kernel" in e.name
-                                or "vector3_residual_kernel" in e.name),
+                                if any(k in e.name for k in K5V_NAMES)),
             "mg_transfer_device_ms": ms(e for e in kernels if in_range(e)),
             "device_ms_by_kernel": top}
+
+
+def vector_cases():
+    """K4's and K5v's shapes on their paths, as ``chip_smoke.py`` checks
+    them: (name, nd, grid, batch (0: unbatched), steps, residual, degree,
+    dtypes)."""
+    gs = 2 * chip_smoke.STOKES["n"] + 1
+    ns = chip_smoke.STOKES["n_t"] - 1
+    g3 = 2 * chip_smoke.STOKES3D["n"] + 1
+    n3 = chip_smoke.STOKES3D["n_t"] - 1
+    both, f64 = ("float64", "float32"), ("float64",)
+    return [
+        ("K4 mass solve", 2, (gs, gs), ns, 20, False, 2, both),
+        ("K4 ragged batch", 2, (gs, gs), 9, 20, False, 2, f64),
+        ("K4 level", 2, (gs, gs), 0, 8, True, 2, f64),
+        ("K4 level", 2, ((gs + 1) // 2,) * 2, 0, 8, True, 2, f64),
+        ("K5v mass solve", 3, (g3,) * 3, n3, 20, False, 2, both),
+        ("K5v ragged batch", 3, (g3,) * 3, 9, 20, False, 2, f64),
+        ("K5v level", 3, (g3,) * 3, 0, 8, True, 2, both),
+        ("K5v level", 3, ((g3 + 1) // 2,) * 3, 0, 8, True, 2, both),
+        ("K5v level, degree 1", 3, (g3,) * 3, 0, 8, True, 1, f64)]
+
+
+def _vector_inputs(case, dtype, rng):
+    """Seeded inputs of one case on the card (``chip_smoke.py``'s
+    stencils: shared weights and dinv, scalar bounds)."""
+    _, nd, grid, n, _, _, degree, _ = case
+    maker = (chip_smoke.make_vector_stencil if nd == 2
+             else chip_smoke.make_vector_stencil_3d)
+    w, dinv, th, de = maker(rng, grid, degree)
+
+    def T(a):
+        return torch.as_tensor(a, dtype=getattr(torch, dtype),
+                               device=torch.device("cuda", 0))
+
+    lead = (n,) if n else ()
+    b = T(rng.standard_normal(lead + grid + (nd,)))
+    x0 = torch.zeros_like(b) if n else T(rng.standard_normal(grid + (nd,)))
+    return T(w), T(dinv), b, x0, th, de
+
+
+VECTOR_REPEATS = 20
+# calls a host timing of an unbatched level averages over (K4, K5v)
+HOST_CALLS = {2: 10000, 3: 2000}
+
+
+def device_ms(fn, calls=VECTOR_REPEATS):
+    """Device time of the kernels one call of ``fn`` launches (the mean
+    over ``calls`` calls in a torch.profiler trace)."""
+    from torch.profiler import profile as tprofile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / calls
+
+
+def host_us(fn, calls):
+    """The host's time (us) a call of ``fn``: a CPU clock over ``calls``
+    calls with no synchronisation between them, read before and after the
+    final one.  Where the card keeps up, the first is the wrapper's host
+    work (Python, allocation, launches); where it does not, the launch
+    queue fills and both approach the device time."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    return (t1 - t0) / calls * 1e6, (t2 - t0) / calls * 1e6
+
+
+def vector():
+    """K4 and K5v at their paths' shapes through ``fused_cheb_smooth``."""
+    from control_tpu_torch.ops import stencil as st
+    rng = np.random.default_rng(chip_smoke.SEED)
+    rows = []
+    for case in vector_cases():
+        name, nd, grid, n, steps, residual, degree, dtypes = case
+        for dtype in dtypes:
+            w, dinv, b, x0, th, de = _vector_inputs(case, dtype, rng)
+            # the unbatched levels take a tenth of a millisecond, and the
+            # host's noise needs more calls to average out
+            def call():
+                return st.fused_cheb_smooth(w, dinv, b, x0, steps, th, de,
+                                            degree, want_residual=residual,
+                                            nd=nd)
+            ms = chip_smoke.cuda_ms(
+                call, VECTOR_REPEATS if n else 10 * VECTOR_REPEATS)
+            row = {"case": name, "dtype": dtype, "shape": list(b.shape),
+                   "steps": steps, "residual": residual, "degree": degree,
+                   "ms": ms, "device_ms": device_ms(call)}
+            if not n:
+                row["host_us"], row["host_sync_us"] = host_us(
+                    call, HOST_CALLS[nd])
+            rows.append(row)
+            del w, dinv, b, x0
+    return {"vector": rows}
 
 
 def history(dtype, n, n_t, budget):
@@ -351,6 +471,8 @@ def main(argv):
     card = chip_smoke.card_line()
     if argv[:1] == ["kernels2d"]:
         out = kernels2d()
+    elif argv == ["vector"]:
+        out = vector()
     elif argv[:1] == ["profile"] and len(argv) == 2 and (
             argv[1] in SLICES or argv[1] in STOKES_SLICES):
         out = profile(argv[1])

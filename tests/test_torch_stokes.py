@@ -30,7 +30,8 @@ the JAX package, in float64 on the CPU.
 
 One JAX reference solve serves the whole file (it costs about a minute of
 compilation).  The tests marked ``gpu`` hold the CUDA kernel K4 against its
-plain version on the card, and skip elsewhere.
+plain version on the card, every variant its C entry point picks by shape
+among them, and skip elsewhere.
 """
 
 import numpy as np
@@ -795,52 +796,132 @@ def test_unported_stokes_paths_raise(case):
 # on the card
 # ---------------------------------------------------------------------------
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("layout", sorted(VECTOR_LAYOUTS))
-@pytest.mark.parametrize("degree", [1, 2])
-@pytest.mark.parametrize("kind", ["float64", "float32"])
-def test_cheb_vector_kernel_matches_plain_on_card(layout, degree, kind):
-    """K4 on the card against its plain version on the same CUDA tensors:
-    shared and per-batch weights, scalar and (n,) bounds, unbatched fields,
-    odd grid widths, with and without the residual.  Tolerance: 1e-12 in
-    double precision, 1e-4 in single (another summation order)."""
+
+def card_vector_inputs(rng, nd, degree, grid, n, per_batch_w, per_batch_bounds):
+    """Seeded inputs of a vector smoothing call (dim = nd) for the card.
+
+    Every weight is random and nonzero, at the offsets that point outside
+    the grid too, so a kernel that reads a neighbour it should mask (a dx
+    offset wrapping into the next row, say) disagrees with the plain
+    version.  The fields are zero outside the grid, so those weights drop
+    out of the operator, and the centre balances the in-grid weights of
+    each row: A is singular (constant fields span its null space) and the
+    smoother leaves a residual of the order of b (b = 1 + noise) however
+    many steps it takes, so float32's rounding stays far below the
+    tolerance, where a residual that converges to nothing would not.
+    Chebyshev bounds cover the upper half of the in-grid Gershgorin
+    interval, scalar or one per batch entry.  n = 0 is an unbatched
+    field."""
+    dim = nd
+    K = (2 * degree + 1) ** nd
+    lead = (n,) if n else ()
+    wlead = lead if per_batch_w else ()
+    w = -rng.uniform(0.1, 1.0, wlead + (K,) + grid + (dim, dim)) / K
+    # inside[k, node]: offset k of the node lies in the grid
+    inside = np.ones((K,) + grid, dtype=bool)
+    for k, off in enumerate(ts.stencil_offsets(degree, nd)):
+        for ax, o in enumerate(off):
+            at = np.arange(grid[ax]) + o
+            inside[k] &= ((at >= 0) & (at < grid[ax])).reshape(
+                (-1,) + (1,) * (nd - 1 - ax))
+    centre = (Ellipsis, K // 2) + (slice(None),) * nd
+    for c in range(dim):
+        w[centre + (c, c)] = 0.0
+    in_grid = np.abs(w) * inside[..., None, None]
+    rows = in_grid.sum(axis=(-(nd + 3), -1))
+    for c in range(dim):
+        w[centre + (c, c)] = rows[..., c]
+    diag = np.stack([w[centre + (c, c)] for c in range(dim)], -1)
+    in_grid = np.abs(w) * inside[..., None, None]
+    lam = 1.05 * float((in_grid.sum(axis=(-(nd + 3), -1)) / diag).max())
+    theta, delta = 0.75 * lam, 0.25 * lam
+    if per_batch_bounds:
+        theta = theta * rng.uniform(1.0, 1.2, max(n, 1))
+        delta = delta * rng.uniform(1.0, 1.2, max(n, 1))
+    b = 1.0 + 0.5 * rng.standard_normal(lead + grid + (dim,))
+    # a nonzero start for odd batches and unbatched fields (the V-cycle's
+    # post-smoothing), zero for even batches (the mass solve's)
+    x0 = (rng.standard_normal(lead + grid + (dim,)) if n % 2 or not n
+          else np.zeros(lead + grid + (dim,)))
+    return w, 1.0 / diag, b, x0, theta, delta
+
+
+# (n, per-batch weights, per-batch bounds).  With shared weights the batch
+# loop takes 2, 4 or 8 entries a chunk, the width by shape, so between
+# them these batches run every width either kernel has (K4 float32 stops
+# at 4) and leave a ragged last chunk at 7, 9 and 31; per-batch weights
+# and one field take one entry a thread
+VECTOR_CARD_CASES = {
+    "unbatched": (0, False, False),
+    "n1": (1, False, True),
+    "n2": (2, False, False),
+    "n4": (4, False, True),
+    "n7": (7, False, False),
+    "n9": (9, False, True),
+    "n31": (31, False, False),
+    "n2_per_batch_w": (2, True, True),
+    "n9_per_batch_w": (9, True, False),
+}
+
+
+def _on_card(a, dtype):
+    if not isinstance(a, np.ndarray):
+        return a
+    return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                           device="cuda")
+
+
+def _rel(got, ref):
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def vector_kernel_on_card(nd, degree, kind, case, grids):
+    """K4 (nd = 2) or K5v (nd = 3) against ``_cheb_plain`` on the same CUDA
+    tensors, through ``fused_cheb_smooth`` (the variant the C entry point
+    picks by shape): the batch layout of ``case`` on each grid, 1, 2, 8 and
+    20 steps, with and without the residual; two identical calls give
+    identical bits.  Tolerance: 1e-12 in double precision, 1e-4 in single
+    (another summation order)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dt = getattr(torch, kind)
     tol = 1e-12 if dt == torch.float64 else 1e-4
-    rng = np.random.default_rng(41)
-    w, dinv, b, x0, theta, delta = vector_cheb_inputs(rng, layout, degree,
-                                                      ny=37, nx=45)
-    # a contraction, so that four steps stay of order one in single
-    K = w.shape[-5]
-    w *= 0.1
-    w[..., K // 2, :, :, 0, 0] += 4.0
-    w[..., K // 2, :, :, 1, 1] += 4.0
-
-    def cu(a):
-        if not isinstance(a, np.ndarray):
-            return a
-        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt,
-                               device="cuda")
-
-    wt, dt_, bt, xt, th, de = map(cu, (w, dinv, b, x0, theta, delta))
-
-    def rel(got, ref):
-        return float((got - ref).abs().max() / ref.abs().max())
-
+    n, per_batch_w, per_batch_bounds = VECTOR_CARD_CASES[case]
+    key = "cheb_smooth_vector" if nd == 2 else "cheb_smooth_3d_vector"
+    rng = np.random.default_rng(40 + 10 * nd + degree)
     before = dict(ts.launch_counts)
-    for steps in (1, 4):
-        got = ts.fused_cheb_smooth(wt, dt_, bt, xt, steps, th, de, degree,
-                                   want_residual=True)
-        ref = ts._cheb_plain(wt, dt_, bt, xt, steps, th, de, degree,
-                             want_residual=True)
-        assert rel(got[0], ref[0]) <= tol
-        assert rel(got[1], ref[1]) <= tol
-        assert rel(ts.fused_cheb_smooth(wt, dt_, bt, xt, steps, th, de,
-                                        degree), ref[0]) <= tol
+    calls = 0
+    for grid in grids:
+        args = [_on_card(a, dt) for a in card_vector_inputs(
+            rng, nd, degree, grid, n, per_batch_w, per_batch_bounds)]
+        for steps in (1, 2, 8, 20):
+            for want_residual in (True, False):
+                got = ts.fused_cheb_smooth(*args[:4], steps, *args[4:],
+                                           degree, want_residual, nd=nd)
+                ref = ts._cheb_plain(*args[:4], steps, *args[4:], degree,
+                                     want_residual, nd=nd)
+                calls += 1
+                if not want_residual:
+                    got, ref = (got,), (ref,)
+                for g, r in zip(got, ref):
+                    assert _rel(g, r) <= tol, (grid, steps, want_residual)
+        first, second = (ts.fused_cheb_smooth(*args[:4], 8, *args[4:],
+                                              degree, True, nd=nd)
+                         for _ in range(2))
+        calls += 2
+        assert torch.equal(first[0], second[0])
+        assert torch.equal(first[1], second[1])
     torch.cuda.synchronize()
-    assert (ts.launch_counts["cheb_smooth_vector"]
-            == before["cheb_smooth_vector"] + 4)
-    for k in before:
-        if k != "cheb_smooth_vector":
-            assert ts.launch_counts[k] == before[k]
+    assert ts.launch_counts[key] == before[key] + calls
+    assert all(ts.launch_counts[k] == before[k] for k in before if k != key)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(VECTOR_CARD_CASES))
+@pytest.mark.parametrize("degree", [1, 2])
+@pytest.mark.parametrize("kind", ["float64", "float32"])
+def test_cheb_vector_kernel_matches_plain_on_card(case, degree, kind):
+    """K4 against its plain version on the card: batches of 1 to 31 fields
+    with shared and per-batch weights, scalar and (n,) bounds, unbatched
+    fields, a grid smaller than a block's 32 nodes and an odd one."""
+    vector_kernel_on_card(2, degree, kind, case, [(9, 9), (37, 45)])

@@ -34,8 +34,10 @@ solve (equal iterations, histories within 1e-9 of the initial residual);
 the heat3d_q2 solves (equal iterations, histories within 1e-10 of the
 initial residual, v / zeta within 1e-10); K5 complex at degree 2 against the TPU kernel in interpret mode.
 
-The tests marked ``gpu`` hold the CUDA kernels K5v and K5/K6 at degree 2
-against their plain versions on the card, and skip elsewhere.
+The tests marked ``gpu`` hold the CUDA kernels K5v (every variant its C
+entry point picks by shape among them; the checks are those of the K4
+tests in ``test_torch_stokes.py``) and K5/K6 at degree 2 against their plain
+versions on the card, and skip elsewhere.
 """
 
 import functools
@@ -53,6 +55,7 @@ from control_tpu.solvers import multigrid as jm
 from control_tpu_torch.ops import stencil as ts
 from control_tpu_torch.solvers import multigrid as tm
 from control_tpu_torch.utils import convert
+from test_torch_stokes import VECTOR_CARD_CASES, vector_kernel_on_card
 
 TOL = 1e-12
 GRID = (6, 7, 9)
@@ -839,35 +842,15 @@ def _rel(got, ref):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("case", sorted(VECTOR_CARD_CASES))
 @pytest.mark.parametrize("degree", [1, 2])
 @pytest.mark.parametrize("kind", ["float64", "float32"])
-def test_cheb_vector3d_kernel_matches_plain_on_card(layout, degree, kind):
-    """K5v on the card against its plain version on the same CUDA tensors:
-    shared and per-batch weights, scalar and (n,) bounds, unbatched fields,
-    an odd (7, 11, 37) grid, with and without the residual.  Tolerance:
-    1e-12 in double precision, 1e-4 in single (another summation order)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    dt = getattr(torch, kind)
-    tol = 1e-12 if dt == torch.float64 else 1e-4
-    rng = np.random.default_rng(51)
-    inputs = vector_inputs(rng, layout, degree, (7, 11, 37))
-    wt, dt_, bt, xt, th, de = (_cuda(a, dt) for a in inputs)
-    key = "cheb_smooth_3d_vector"
-    before = dict(ts.launch_counts)
-    for steps in (1, 4):
-        got = ts.fused_cheb_smooth(wt, dt_, bt, xt, steps, th, de, degree,
-                                   want_residual=True, nd=3)
-        ref = ts._cheb_plain(wt, dt_, bt, xt, steps, th, de, degree,
-                             want_residual=True, nd=3)
-        assert _rel(got[0], ref[0]) <= tol
-        assert _rel(got[1], ref[1]) <= tol
-        assert _rel(ts.fused_cheb_smooth(wt, dt_, bt, xt, steps, th, de,
-                                         degree, nd=3), ref[0]) <= tol
-    torch.cuda.synchronize()
-    assert ts.launch_counts[key] == before[key] + 4
-    assert all(ts.launch_counts[k] == before[k] for k in before if k != key)
+def test_cheb_vector3d_kernel_matches_plain_on_card(case, degree, kind):
+    """K5v against its plain version on the card: batches of 1 to 31 fields
+    with shared and per-batch weights, scalar and (n,) bounds, unbatched
+    fields, a grid smaller than a block's 32 nodes and the odd (7, 11, 37)
+    one."""
+    vector_kernel_on_card(3, degree, kind, case, [(5, 5, 5), (7, 11, 37)])
 
 
 @pytest.mark.gpu
