@@ -21,29 +21,51 @@ which raises (and the script exits non-zero) on failure:
    at the stokes3d path's (the same four kinds of call), K5 (real,
    complex) and K6 at degree 2 at heat3d_q2's; the K4 and K5v rows print
    the floor of their design (one weight pass per step for the whole
-   batch) beside the bound;
+   batch) beside the bound; the narrow-weight variants of K2, K3 and K5
+   (real; complex at degree 1 and 2) at their paths' finest shapes, with
+   the planes stored in bfloat16 under float32 fields and in float32
+   under float64 ones (``weight_dtype``), the full-precision kernel's time
+   beside each;
 4. the 2-D slice: a small float64 solve on the card against the same solve
    on the CPU (plain versions), then the flagship heat-control KKT solve
    (Q1 256^2 x 64, Crank-Nicolson, ParaDiag Schur sweeps, GMRES(10), rtol
    1e-6, float32) through ``Control.Instationary(...).linear_solve``: solved
    once, then timed; it must converge below 1e-6 relative residual in at
    most 12 iterations with K1-K3 launched during the timed solve; then the
-   default ``scan`` sweeps at the same size, once;
+   default ``scan`` sweeps at the same size, once; then the same ParaDiag
+   solve with the frequency V-cycles' weight planes in bfloat16
+   (``set_schur_sweep(..., weight_dtype="bfloat16")``; after small
+   float64 solves with float32 and bfloat16 weights on the card against
+   the CPU): it must converge within the solver's budget with the narrow
+   K3 launched during the timed solve, and prints the
+   full-precision solve's numbers beside its own; then geometric
+   multigrid with bfloat16 planes (``Multigrid(op, weight_dtype=...)``)
+   as the preconditioner of GMRES on a Dirichlet stiffness-plus-mass
+   operator at 256^2 and 64^3, the path of the narrow K2 and K5 real;
 5. the 3-D slice, ``heat3d`` (``bench_extra.py``: hex Q1 64^3 x 16, CN,
    ParaDiag with its default settings, GMRES(10), rtol 1e-6, float32):
    small float64 solves (ParaDiag and scan, 8^3 x 8) on the card against
    the CPU, then the full-size solve, once and then timed; it must converge
    below 1e-6 in at most 10 iterations with K5 (real, complex) and K6
-   launched during the timed solve; then the ``scan`` sweeps once;
+   launched during the timed solve; then the ``scan`` sweeps once; then
+   the same with bfloat16 weight planes (after a small float64 solve on
+   the card against the CPU), which stalls at this width (``ROADMAP.md``
+   Queue 3): a measurement, not a check of convergence, with the narrow
+   K5 complex launched, held instead to the same solve run by the
+   full-precision kernels on its planes rounded beforehand (the first
+   three iterations' relative residuals within 1e-4 of each other's);
 6. the Stokes slice (``bench_extra.py``'s ``stokes``: Taylor-Hood Q2-Q1 on
    64^2 cells x 32 time steps, CN, beta = 1e-2, the nested preconditioner
    with the default ``scan`` sweeps, FGMRES(10), rtol 1e-6, at most 100
    iterations) through
    ``Control.Instationary(...).incompressible_linear_solve``: a small
    float64 solve (8^2 x 4) on the card against the CPU, then the full-width
-   solve in float64, once and then timed; it must converge below 1e-6 with
-   K4 and K2 launched during the timed solve.  In float32 this recipe
-   stalls at this width, in the JAX package as in the port (each stage of
+   solve in float64: two builds of its preconditioner give bit-equal
+   coarse dense inverses (so the pc, and the count, repeat themselves in
+   one process), then one timed solve (it is host-bound) must converge
+   below 1e-6 with K4 and K2 launched during it.  In float32 this
+   recipe stalls at this width, in the JAX package as in the port (each
+   stage of
    the preconditioner is accurate to float32, the five fixed inner GMRES
    iterations amplify the difference), so float32 is a measurement here,
    not a target: its first 20 outer iterations run at full width and their
@@ -52,15 +74,17 @@ which raises (and the script exits non-zero) on failure:
    at production width: Taylor-Hood Q2-Q1 on hexahedra, 16^3 cells x 8
    time steps, CN, beta = 1e-2, FGMRES(10), rtol 1e-6, at most 100
    iterations, float64): a small float64 solve (2^3 x 3) on the card
-   against the CPU, then the full-width solve, once and then timed; it
-   must converge below 1e-6 with K5v and K5 (real) launched during the
-   timed solve;
+   against the CPU, then two pc builds with bit-equal coarse inverses
+   and the timed full-width solve, as for the Stokes slice; it must
+   converge below 1e-6 with K5v and K5 (real) launched during it;
 8. the Q2 heat slice, ``heat3d_q2`` (heat3d on Q2 hexahedra, 32^3 cells:
    65^3 nodes, x 16, float32, ParaDiag defaults): small float64 solves
    (ParaDiag and scan, 4^3 x 4) on the card against the CPU, then the
    full-size solve, once and then timed; it must converge below 1e-6 within
    the solver's budget with K5 (real, complex) and K6 at degree 2 launched
-   during the timed solve; then the ``scan`` sweeps once;
+   during the timed solve; then the ``scan`` sweeps once; then the
+   ParaDiag solve with bfloat16 weight planes, a measurement like
+   heat3d's;
 9. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers, and
    last ``{"ok": true, "device": {...}}``.
 
@@ -90,7 +114,17 @@ TOL = {("K1", "float64"): 1e-12, ("K1", "float32"): 1e-5,
        ("K5v", "float64"): 1e-12, ("K5v", "float32"): 1e-4,
        ("K6q2", "float64"): 1e-12, ("K6q2", "float32"): 1e-5,
        ("K5rq2", "float64"): 1e-12, ("K5rq2", "float32"): 1e-4,
-       ("K5cq2", "float64"): 1e-12, ("K5cq2", "float32"): 1e-4}
+       ("K5cq2", "float64"): 1e-12, ("K5cq2", "float32"): 1e-4,
+       ("K2n", "float64"): 1e-12, ("K2n", "float32"): 1e-4,
+       ("K3n", "float64"): 1e-12, ("K3n", "float32"): 1e-4,
+       ("K5rn", "float64"): 1e-12, ("K5rn", "float32"): 1e-4,
+       ("K5cn", "float64"): 1e-12, ("K5cn", "float32"): 1e-4,
+       ("K5cnq2", "float64"): 1e-12, ("K5cnq2", "float32"): 1e-4}
+# the narrow weight storage of each field dtype in the kernel rows: the
+# JAX benchmarks' bfloat16 under float32 fields, float32 under float64
+NARROW_WEIGHTS = {"float32": "bfloat16", "float64": "float32"}
+# the ParaDiag solves with their weight planes in bfloat16
+WEIGHT_DTYPE = "bfloat16"
 FLAGSHIP = dict(n=256, n_t=64)
 HEAT3D = dict(n=64, n_t=16, scan_n=64)
 STOKES = dict(n=64, n_t=32, small_n=8, small_n_t=4, float32_budget=20)
@@ -291,6 +325,10 @@ def report(results):
                      f"(chunks of {r['batch_width']}, L2 at an assumed "
                      f"{L2_BYTES_S / 1e12:g} TB/s)"
                      if "design_floor_ms" in r else "")
+            if "weight_dtype" in r:
+                floor = (f", weights {r['weight_dtype']}; full-precision "
+                         f"kernel {r['full_precision_ms']:.4f} ms, bound "
+                         f"{r['full_precision_bound_ms']:.4f} ms")
             print(f"{kname} {r['dtype']} {r['shape']}: rel err "
                   f"{r['max_rel_err']:.3e} (tol {r['tol']:.0e}), kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
@@ -320,13 +358,25 @@ def check_kernels(dev, record):
     nq2 = HEAT3D_Q2["n_t"] - 1
     results = {"K1": [], "K2": [], "K3": [], "K6": [], "K5r": [],
                "K5c": [], "K4": [], "K5v": [], "K6q2": [], "K5rq2": [],
-               "K5cq2": []}
+               "K5cq2": [], "K2n": [], "K3n": [], "K5rn": [], "K5cn": [],
+               "K5cnq2": []}
 
     def field(shape, cplx=False):
         a = rng.standard_normal(shape)
         if cplx:
             a = a + 1j * rng.standard_normal(shape)
         return a
+
+    made = {}
+
+    def stencil(n_w, grid, complex_=False, degree=1):
+        # one smoother stencil per shape, shared by both dtypes and by the
+        # narrow rows: numpy takes many seconds for a complex K = 125 one
+        # at 65^3
+        key = (n_w, tuple(grid), complex_, degree)
+        if key not in made:
+            made[key] = make_stencil(rng, n_w, grid, complex_, degree)
+        return made[key]
 
     for dtype in (torch.float64, torch.float32):
         name = str(dtype).split(".")[-1]
@@ -350,7 +400,7 @@ def check_kernels(dev, record):
         def real_cheb_check(kname, grid, nb, steps):
             # shared w and dinv, scalar bounds (the (1,1) mass solve)
             nd = len(grid)
-            w, dinv, theta, delta = make_stencil(rng, 1, grid)
+            w, dinv, theta, delta = stencil(1, grid)
             wt, dt_, bt = T(w), T(dinv[0]), T(field((nb,) + grid))
             x0 = torch.zeros_like(bt)
             th, de = float(theta[0]), float(delta[0])
@@ -372,8 +422,7 @@ def check_kernels(dev, record):
             # per-batch complex w, (n,) bounds, residual on (the ParaDiag
             # frequency V-cycles)
             nd = len(grid)
-            w, dinv, theta, delta = make_stencil(rng, nb, grid,
-                                                 complex_=True)
+            w, dinv, theta, delta = stencil(nb, grid, complex_=True)
             wt, dt_ = T(w, cdt), T(dinv, cdt)
             bt = T(field((nb,) + grid, cplx=True), cdt)
             xt = T(field((nb,) + grid, cplx=True), cdt)
@@ -466,8 +515,8 @@ def check_kernels(dev, record):
             # real: shared w and dinv, scalar bounds, x0 = 0, no residual
             # (the mass solve); complex: per-batch w, (n,) bounds, residual
             # on (the ParaDiag frequency V-cycles)
-            w, dinv, theta, delta = make_stencil(
-                rng, nb if complex_ else 1, grid, complex_, degree=2)
+            w, dinv, theta, delta = stencil(nb if complex_ else 1, grid,
+                                            complex_, degree=2)
             if complex_:
                 wt, dt_ = T(w, cdt), T(dinv, cdt)
                 bt = T(field((nb,) + grid, cplx=True), cdt)
@@ -494,6 +543,57 @@ def check_kernels(dev, record):
                 (nbytes(wt, dt_, bt, x0, *bounds, *outs),
                  cheb_flops(125, bt, steps, complex_)),
                 plain_repeats=PLAIN_REPEATS_3D, steps=steps))
+
+        def narrow_cheb_check(kname, grid, nb, steps, complex_, degree):
+            # planes stored narrow (``narrow_planes``: bf16 under float32
+            # fields, f32 under float64), residual on; complex: per-batch
+            # w and dinv, (n,) bounds (the ParaDiag frequency V-cycles);
+            # real: shared w and dinv, scalar bounds, x0 = 0.  The
+            # full-precision kernel is timed on the full planes beside it.
+            nd = len(grid)
+            K = (2 * degree + 1) ** nd
+            wd = NARROW_WEIGHTS[name]
+            w, dinv, theta, delta = stencil(nb if complex_ else 1, grid,
+                                            complex_, degree)
+            if complex_:
+                wt, dt_ = T(w, cdt), T(dinv, cdt)
+                bt = T(field((nb,) + grid, cplx=True), cdt)
+                x0 = T(field((nb,) + grid, cplx=True), cdt)
+                th, de = T(theta), T(delta)
+            else:
+                wt, dt_ = T(w), T(dinv[0])
+                bt = T(field((nb,) + grid))
+                x0 = torch.zeros_like(bt)
+                th, de = float(theta[0]), float(delta[0])
+            wn, dn = st.narrow_planes(wt, wd), st.narrow_planes(dt_, wd)
+
+            def kern():
+                return st.fused_cheb_smooth(wn, dn, bt, x0, steps, th, de,
+                                            degree, want_residual=True,
+                                            weight_dtype=wd, nd=nd)
+
+            def plain():
+                return st._cheb_plain(wn, dn, bt, x0, steps, th, de, degree,
+                                      want_residual=True, weight_dtype=wd,
+                                      nd=nd)
+
+            def full():
+                return st.fused_cheb_smooth(wt, dt_, bt, x0, steps, th, de,
+                                            degree, want_residual=True,
+                                            nd=nd)
+
+            bounds = (th, de) if complex_ else ()
+            results[kname].append(check_row(
+                kname, name, bt.shape, kern(), plain(), kern, plain,
+                (nbytes(wn, dn, bt, x0, *bounds, bt, bt),
+                 cheb_flops(K, bt, steps, True)),
+                plain_repeats=PLAIN_REPEATS_3D if nd == 3 else REPEATS,
+                steps=steps, degree=degree, weight_dtype=wd,
+                full_precision_ms=cuda_ms(full),
+                full_precision_bound_ms=bound(
+                    nbytes(wt, dt_, bt, x0, *bounds, bt, bt),
+                    cheb_flops(K, bt, steps, True), name)[0]))
+            del wt, dt_, wn, dn, bt, x0
 
         # K1 (63, 257^2); K2 (63, 257^2), 10 steps; K3 32 frequencies, 3
         # steps, at every smoothed level of the flagship's hierarchy
@@ -530,6 +630,15 @@ def check_kernels(dev, record):
         q2_cheb_check("K5rq2", (gq2,) * 3, nq2, 20, False)
         for gl in (65, 33, 17, 9):
             q2_cheb_check("K5cq2", (gl,) * 3, nq2 // 2 + 1, 8, True)
+        # narrow weight planes at the finest shape of each path: K3 32
+        # frequencies (257^2), 3 steps; K5 complex 8 frequencies (65^3),
+        # 8 steps, degree 1 and 2; K2 (63, 257^2) and K5 real (15, 65^3),
+        # 10 steps, the shapes of the multigrid path that drives them
+        narrow_cheb_check("K3n", (g, g), (n_t - 1) // 2 + 1, 3, True, 1)
+        narrow_cheb_check("K5cn", (g3,) * 3, n3 // 2 + 1, 8, True, 1)
+        narrow_cheb_check("K5cnq2", (gq2,) * 3, nq2 // 2 + 1, 8, True, 2)
+        narrow_cheb_check("K2n", (g, g), n_t - 1, 10, False, 1)
+        narrow_cheb_check("K5rn", (g3,) * 3, n3, 10, False, 1)
     record["kernel_checks"] = results
     report(results)
     return results
@@ -555,6 +664,14 @@ KEYS_STOKES3D = ("cheb_smooth_3d_vector", "cheb_smooth_3d_real")
 LAMBDA_Q2 = (0.1, 2.3)
 KEYS_3D_Q2 = ("stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
               "cheb_smooth_3d_complex_q2")
+# with bfloat16 weight planes the ParaDiag V-cycles run the narrow complex
+# kernels; the mass solves and applications stay full precision
+KEYS_2D_BF16 = ("stencil_apply", "cheb_smooth_real",
+                "cheb_smooth_complex_bf16")
+KEYS_3D_BF16 = ("stencil_apply_3d", "cheb_smooth_3d_real",
+                "cheb_smooth_3d_complex_bf16")
+KEYS_3D_Q2_BF16 = ("stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
+                   "cheb_smooth_3d_complex_q2_bf16")
 
 
 def heat_problem(n, n_t, dtype, device, mode):
@@ -631,6 +748,17 @@ def heat3d_problem(n, n_t, dtype, device, mode, degree=1):
 def heat3d_q2_problem(n, n_t, dtype, device, mode):
     """heat3d on Q2 hexahedra: n^3 cells, (2n + 1)^3 nodes."""
     return heat3d_problem(n, n_t, dtype, device, mode, degree=2)
+
+
+def with_weights(build, weight_dtype):
+    """A ParaDiag problem constructor whose frequency V-cycles store their
+    weight planes in ``weight_dtype`` (``set_schur_sweep(...,
+    weight_dtype=...)``, the JAX benchmarks' ``BENCH_PD_WEIGHT_DTYPE``)."""
+    def narrow_build(n, n_t, dtype, device, mode):
+        ctl = build(n, n_t, dtype, device, mode)
+        ctl.set_schur_sweep(mode, weight_dtype=weight_dtype)
+        return ctl
+    return narrow_build
 
 
 def stokes3d_problem(n, n_t, dtype, device):
@@ -711,9 +839,15 @@ def stokes_solve(ctl, lambdas=LAMBDA_STOKES, **extra):
         print_error=False, **lambdas, **extra)
 
 
-def solve(ctl, bounds):
+def solve(ctl, bounds, gated=True, budget=None):
+    """The slice's solve; ``gated=False`` returns the record at the end of
+    the budget instead of raising when it does not converge."""
+    parameters = (SOLVER_PARAMETERS if gated
+                  else dict(SOLVER_PARAMETERS, preconditioner=True))
+    if budget is not None:
+        parameters = dict(parameters, maximum_iterations=budget)
     return ctl.linear_solve(lambda_v_bounds=bounds,
-                            solver_parameters=SOLVER_PARAMETERS,
+                            solver_parameters=parameters,
                             print_error=False)
 
 
@@ -739,7 +873,7 @@ def check_small_f64(dev, record, key, cases):
         row = dict(n=n, n_t=n_t, iterations_cpu=its,
                    iterations_gpu=ig.iterations, hist_rel=hist, v_rel=dv,
                    zeta_rel=dz)
-        out[mode] = row
+        out[f"{mode} {label}"] = row
         print(f"slice f64 {mode} {label}: cuda vs cpu {row}", flush=True)
         if not (ig.iterations == its and hist < 1e-8 and dv < 1e-9
                 and dz < 1e-9):
@@ -747,12 +881,56 @@ def check_small_f64(dev, record, key, cases):
     record[key] = out
 
 
+# the iterations of a stalled narrow-plane solve held to the same solve on
+# rounded planes run by the full-precision kernels
+ROUNDED_ITERATIONS = 3
+
+
+def rounded_planes_solve(dev, build, size, bounds, narrow_ctl):
+    """The ParaDiag solve of ``narrow_ctl`` (weight planes stored narrow)
+    run instead by the full-precision kernels on its planes widened back:
+    a problem from ``build`` (no ``weight_dtype``) whose pc state takes
+    the narrow pc's smoother planes, widened exactly; every other part of
+    the state (bounds, diagonals, coarse inverses) is made from the full
+    planes in both, as the reference makes it.  The narrow kernels widen
+    each weight on load and then compute as the full-precision ones do,
+    up to float32 rounding (the two instantiations do not round alike),
+    so both solves start on one residual history; a stalled float32
+    GMRES amplifies those rounding differences after a few iterations
+    (to a few percent of the residual by the budget's end, where both
+    stand at the same level)."""
+    from control_tpu_torch.ops.stencil import widen_planes
+    n, n_t = size
+    ctl = build(n, n_t, torch.float32, dev, "paradiag")
+    solve(ctl, bounds, gated=False, budget=1)   # builds and caches the pc
+    (state,) = ctl._pc_state_cache.values()
+    (narrow,) = narrow_ctl._pc_state_cache.values()
+    for sweep in ("fwd", "bwd"):
+        full, stored = state[sweep]["params"], narrow[sweep]["params"]
+        for k in ("Ws", "dinvs"):
+            full[k] = [widen_planes(a, b) for a, b in zip(stored[k],
+                                                          full[k])]
+    return solve(ctl, bounds, gated=False)
+
+
 def timed_solve(dev, record, card, key, metric, build, size, bounds,
-                max_its, keys):
+                max_its, keys, full_row=None, gated=True, full_build=None):
     """A slice's ParaDiag solve at full size, float32: solved once, the pc
     build timed apart, then solved again with CUDA events around it and
     every launch count set to 0 just before; ``keys`` are the kernels of
-    the path, each of which must launch."""
+    the path, each of which must launch (narrow planes come stored narrow
+    from the pc build: the kernel wrappers refuse full ones on the card).
+    ``full_precision``: the row of
+    the same slice with its weights in float32, printed beside this one's
+    numbers.  ``gated=False``: a measurement, not a check of convergence
+    (the recipe's behaviour at this width, ``ROADMAP.md`` Queue 3): the
+    first solve is a one-iteration warm-up that builds the pc, the timed
+    solve runs to its budget and the row says where it got to; instead of
+    convergence it is held to ``rounded_planes_solve`` with ``full_build``
+    (the relative residuals of the first ``ROUNDED_ITERATIONS``
+    iterations, each one preconditioner application deeper, within 1e-4
+    of each other's; the rest of both histories is printed), and the
+    other checks hold."""
     from control_tpu_torch.config import full_precision
     from control_tpu_torch.fem.assemble import assemble
     from control_tpu_torch.fem.space import combine_masks
@@ -760,7 +938,7 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
     n, n_t = size
     t0 = time.perf_counter()
     ctl = build(n, n_t, torch.float32, dev, "paradiag")
-    first = solve(ctl, bounds)
+    first = solve(ctl, bounds, gated, budget=None if gated else 1)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
 
@@ -775,13 +953,45 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
         torch.cuda.synchronize()
         pc_build_s = time.perf_counter() - t0
 
-    info, row = repeat_solve_row(lambda: solve(ctl, bounds), metric,
+    info, row = repeat_solve_row(lambda: solve(ctl, bounds, gated), metric,
                                  "paradiag", card)
     row.update(pc_build_s=pc_build_s, first_solve_s=first_s,
-               first_iterations=first.iterations)
+               first_iterations=first.iterations,
+               weight_dtype=getattr(ctl, "_mg_weight_dtype", None))
+    if full_row is not None:
+        row["full_precision"] = {
+            k: full_row[k] for k in ("iterations", "relative_residual",
+                                     "solve_s", "pc_build_s")}
     fields = {"v": (ctl._v.data, ctl._space_v, n_t),
               "zeta": (ctl._zeta.data, ctl._space_v, n_t)}
-    return judge_solve(record, key, row, info, max_its, keys, fields)
+    if not gated:
+        row["gated"] = False
+        k = info.iterations + 1
+        row["relative_history"] = [float(r / info.res_norms[0])
+                                   for r in info.res_norms[:k]]
+        rounded = rounded_planes_solve(dev, full_build, size, bounds, ctl)
+        k = min(info.iterations, rounded.iterations) + 1
+        ours = np.asarray(info.res_norms[:k]) / info.res_norms[0]
+        theirs = np.asarray(rounded.res_norms[:k]) / rounded.res_norms[0]
+        gap = np.abs(ours - theirs) / ours
+        row["rounded_planes_full_kernels"] = {
+            "iterations": rounded.iterations,
+            "relative_residual": rounded.rnorm / rounded.rnorm0,
+            "first_iterations_max_rel": float(
+                np.max(gap[:ROUNDED_ITERATIONS + 1])),
+            "history_max_rel": float(np.max(gap)),
+            "relative_history": [float(r) for r in theirs]}
+    row = judge_solve(record, key, row, info, max_its, keys, fields,
+                      gated=gated)
+    if not gated:
+        same = row["rounded_planes_full_kernels"]
+        if not (info.iterations >= ROUNDED_ITERATIONS
+                and same["first_iterations_max_rel"] <= 1e-4
+                and np.isfinite(same["relative_residual"])):
+            raise AssertionError(f"{key}: the narrow kernels part from the "
+                                 "full-precision ones on the same rounded "
+                                 f"planes: {same}")
+    return row
 
 
 def repeat_solve_row(solve_fn, metric, schur, card, dtype="float32"):
@@ -809,16 +1019,20 @@ def repeat_solve_row(solve_fn, metric, schur, card, dtype="float32"):
                   "card": card}
 
 
-def judge_solve(record, key, row, info, max_its, keys, fields):
+def judge_solve(record, key, row, info, max_its, keys, fields,
+                gated=True):
     """Print and record a timed solve's row, and hold it to its targets:
-    convergence below 1e-6 within ``max_its``, every field
-    (name: (tensor, space, blocks)) on the card, finite and of its shape,
-    every kernel of ``keys`` launched."""
+    convergence below 1e-6 within ``max_its`` (unless not ``gated``: then
+    a finite residual), every field (name: (tensor, space, blocks)) on
+    the card, finite and of its shape, every kernel of ``keys``
+    launched."""
     print(json.dumps(row), flush=True)
     record[key] = row
-    if not (info.converged and row["relative_residual"] < 1e-6
-            and info.iterations <= max_its):
+    if gated and not (info.converged and row["relative_residual"] < 1e-6
+                      and info.iterations <= max_its):
         raise AssertionError(f"{key} solve off target: {row}")
+    if not np.isfinite(row["relative_residual"]):
+        raise AssertionError(f"{key} residual not finite: {row}")
     for name, (x, space, blocks) in fields.items():
         if not x.is_cuda:
             raise AssertionError(f"{name} left the card")
@@ -877,31 +1091,39 @@ def timed_stokes(dev, record, card, key="stokes",
                  metric="stokes_64x64_nt32_kkt_solve_cuda",
                  build=stokes_problem, size=None, lambdas=LAMBDA_STOKES,
                  keys=KEYS_STOKES):
-    """The Stokes solve at full width, float64: solved once, the build of
-    its pieces (block system, preconditioner state, right-hand sides) timed
-    apart, then solved again with CUDA events around it and the launch
-    counts set to 0 just before."""
+    """The Stokes solve at full width, float64: the build of its pieces
+    (block system, preconditioner state, right-hand sides) made twice and
+    the second build timed, every coarse dense inverse of the two held bit
+    for bit (the dense coarse assembly sums in a fixed order, so the pc,
+    and with it the iteration count, repeats itself in one process), then
+    one solve with CUDA events around it and the launch counts set to 0
+    just before.  The solve is host-bound (47-92 s at 64^2 x 32), so it
+    runs once."""
     n, n_t = size or (STOKES["n"], STOKES["n_t"])
-    t0 = time.perf_counter()
     ctl = build(n, n_t, torch.float64, dev)
-    first = stokes_solve(ctl, lambdas)
-    torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
-
+    first_inv = dense_inverses(
+        stokes_solve(ctl, lambdas, _return_pieces=True)[1].state)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    stokes_solve(ctl, lambdas, _return_pieces=True)
+    pieces = stokes_solve(ctl, lambdas, _return_pieces=True)
     torch.cuda.synchronize()
     pc_build_s = time.perf_counter() - t0
+    second_inv = dense_inverses(pieces[1].state)
+    del pieces
 
     torch.cuda.reset_peak_memory_stats()
     info, row = repeat_solve_row(lambda: stokes_solve(ctl, lambdas), metric,
                                  "scan", card, dtype="float64")
     its = info.iterations
-    row.update(pc_build_s=pc_build_s, first_solve_s=first_s,
-               first_iterations=first.iterations,
+    row.update(pc_build_s=pc_build_s,
+               dense_inverses_bit_equal=all(
+                   torch.equal(first_inv[p], second_inv[p])
+                   for p in first_inv),
                peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                residual_history=[float(r) for r in info.res_norms[:its + 1]])
+    if not (row["dense_inverses_bit_equal"] and first_inv):
+        raise AssertionError(f"{key} does not repeat itself: two pc builds "
+                             "give coarse inverses that are not bit-equal")
     fields = {"v": (ctl._v.data, ctl._space_v, n_t),
               "zeta": (ctl._zeta.data, ctl._space_v, n_t),
               "p": (ctl._p.data, ctl._space_p, n_t - 1),
@@ -909,6 +1131,20 @@ def timed_stokes(dev, record, card, key="stokes",
     return judge_solve(record, key, row, info,
                        STOKES_PARAMETERS["maximum_iterations"], keys,
                        fields)
+
+
+def dense_inverses(state, path=""):
+    """Every coarse dense inverse (``Ainv``) of a pc state, by path."""
+    if isinstance(state, dict):
+        items = state.items()
+    elif isinstance(state, (list, tuple)):
+        items = enumerate(state)
+    else:
+        return {path: state} if path.endswith("Ainv") else {}
+    out = {}
+    for k, v in items:
+        out.update(dense_inverses(v, f"{path}/{k}"))
+    return out
 
 
 def stokes_float32_history(dev, record, card, float64_history):
@@ -946,6 +1182,79 @@ def stokes_float32_history(dev, record, card, float64_history):
     record["stokes_float32"] = row
     if not np.all(np.isfinite(hist)):
         raise AssertionError(f"float32 stokes residuals not finite: {row}")
+
+
+def narrow_multigrid(dev, record, card):
+    """Geometric multigrid with its weight planes stored in bfloat16
+    (``Multigrid(op, weight_dtype=...)``, the JAX package's BoomerAMG
+    stand-in, whose hierarchies take ``weight_dtype`` whatever their
+    operator) as the preconditioner of GMRES(30), rtol 1e-6, on a Dirichlet
+    stiffness-plus-mass operator at the flagship's width (Q1 256^2) and
+    heat3d's (hex Q1 64^3), float32: its real V-cycles run the narrow K2
+    (2-D) and K5 real (3-D) kernels.  Each solve, and the same solve with
+    full-precision planes beside it, runs with every launch count set to 0
+    just before; the narrow one must converge, with a true residual below
+    1e-5, its narrow kernel launched in the solve."""
+    from control_tpu_torch import (UnitSquareMesh, UnitCubeMesh,
+                                   FunctionSpace, DirichletBC, TrialFunction,
+                                   TestFunction, inner, grad, dx, assemble)
+    from control_tpu_torch.config import full_precision
+    from control_tpu_torch.ops import stencil as st
+    from control_tpu_torch.ops.local_op import MaskedOp
+    from control_tpu_torch.solvers.krylov import gmres
+    from control_tpu_torch.solvers.multigrid import Multigrid
+
+    rng = np.random.default_rng(SEED)
+    n2, n3 = FLAGSHIP["n"], HEAT3D["n"]
+    cases = (
+        ("multigrid_2d", "cheb_smooth_real_bf16", lambda: UnitSquareMesh(
+            n2, n2, quadrilateral=True, dtype=torch.float32, device=dev)),
+        ("multigrid_3d", "cheb_smooth_3d_real_bf16", lambda: UnitCubeMesh(
+            n3, n3, n3, dtype=torch.float32, device=dev)))
+    out = {}
+    for label, key, mesh_fn in cases:
+        sp = FunctionSpace(mesh_fn(), "Lagrange", 1)
+        u, v = TrialFunction(sp), TestFunction(sp)
+        op = MaskedOp(assemble(inner(grad(u), grad(v)) * dx
+                               + inner(u, v) * dx),
+                      DirichletBC(sp, 0.0, "on_boundary").mask)
+        b = torch.where(op.mask, 0.0, torch.as_tensor(
+            rng.standard_normal(sp.grid_shape), dtype=torch.float32,
+            device=dev))
+        rows = {}
+        for wd in (None, WEIGHT_DTYPE):
+            with full_precision():
+                mg = Multigrid(op, weight_dtype=wd)
+                st.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, info = gmres(op.apply, b, M=mg, restart=30, rtol=1e-6,
+                                maxiter=100)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                true_rel = float(torch.linalg.vector_norm(b - op.apply(x))
+                                 / torch.linalg.vector_norm(b))
+            rows[wd or "float32"] = {
+                "iterations": info["iterations"],
+                "relative_residual": float(info["rnorm"] / info["rnorm0"]),
+                "true_relative_residual": true_rel,
+                "converged": info["converged"], "solve_s": seconds,
+                "launches": {k: c for k, c in st.launch_counts.items()
+                             if c}}
+        row = {"metric": f"{label}_{sp.grid_shape[0]}_gmres_mg_bf16_cuda",
+               **rows[WEIGHT_DTYPE], "full_precision": rows["float32"],
+               "card": card}
+        print(json.dumps(row), flush=True)
+        out[label] = row
+        if not (row["converged"] and row["true_relative_residual"] < 1e-5
+                and bool(torch.isfinite(x).all())
+                and tuple(x.shape) == tuple(sp.grid_shape)):
+            raise AssertionError(f"{label} off target: {row}")
+        if row["launches"].get(key, 0) <= 0:
+            raise AssertionError(f"{label}: {key} not launched in the "
+                                 f"solve: {row}")
+    record["narrow_multigrid"] = out
+    return out
 
 
 def scan_once(dev, record, key, build, size, bounds):
@@ -996,8 +1305,17 @@ def main():
     print(f"kernel build + load: {build_s:.2f} s; registers per thread "
           f"{regs}; spilling functions: {len(spills)}", flush=True)
     record["build_s"] = build_s
+    # seconds of each phase since the previous mark (smoke_out's record)
+    marks = record["phase_s"] = {}
+    last = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        marks[name] = now - last[0]
+        last[0] = now
 
     checks = check_kernels(dev, record)
+    lap("kernel_checks")
     # the 2-D slice
     check_small_f64(dev, record, "small_f64", (
         ("32^2x8", heat_problem, "paradiag", 32, 8, LAMBDA_2D),
@@ -1008,19 +1326,46 @@ def main():
                        LAMBDA_2D, 12, KEYS_2D)
     scan_once(dev, record, "flagship_scan", heat_problem,
               (FLAGSHIP["n"], FLAGSHIP["n_t"]), LAMBDA_2D)
+    lap("2d")
+    # the 2-D slice with narrow weight planes
+    check_small_f64(dev, record, "small_f64_narrow", (
+        ("32^2x8 float32 weights", with_weights(heat_problem, "float32"),
+         "paradiag", 32, 8, LAMBDA_2D),
+        ("32^2x8 bfloat16 weights", with_weights(heat_problem, "bfloat16"),
+         "paradiag", 32, 8, LAMBDA_2D)))
+    flag_n = timed_solve(dev, record, card, "flagship_bf16",
+                         "heat_control_256x256_nt64_kkt_solve_bf16_cuda",
+                         with_weights(heat_problem, WEIGHT_DTYPE),
+                         (FLAGSHIP["n"], FLAGSHIP["n_t"]), LAMBDA_2D,
+                         SOLVER_PARAMETERS["maximum_iterations"],
+                         KEYS_2D_BF16, full_row=flag)
+    lap("2d_bf16")
+    # the real V-cycles with narrow weight planes (narrow K2, K5 real)
+    mg_n = narrow_multigrid(dev, record, card)
+    lap("multigrid_bf16")
     # the 3-D slice
     check_small_f64(dev, record, "small_f64_3d", (
         ("8^3x8", heat3d_problem, "paradiag", 8, 8, LAMBDA_3D),
-        ("8^3x8", heat3d_problem, "scan", 8, 8, LAMBDA_3D)))
+        ("8^3x8", heat3d_problem, "scan", 8, 8, LAMBDA_3D),
+        ("8^3x8 bfloat16 weights", with_weights(heat3d_problem, "bfloat16"),
+         "paradiag", 8, 8, LAMBDA_3D)))
     h3 = timed_solve(dev, record, card, "heat3d",
                      "heat3d_64cubed_nt16_kkt_solve_cuda", heat3d_problem,
                      (HEAT3D["n"], HEAT3D["n_t"]), LAMBDA_3D, 10, KEYS_3D)
+    h3n = timed_solve(dev, record, card, "heat3d_bf16",
+                      "heat3d_64cubed_nt16_kkt_solve_bf16_cuda",
+                      with_weights(heat3d_problem, WEIGHT_DTYPE),
+                      (HEAT3D["n"], HEAT3D["n_t"]), LAMBDA_3D,
+                      SOLVER_PARAMETERS["maximum_iterations"], KEYS_3D_BF16,
+                      full_row=h3, gated=False, full_build=heat3d_problem)
     scan_once(dev, record, "heat3d_scan", heat3d_problem,
               (HEAT3D["scan_n"], HEAT3D["n_t"]), LAMBDA_3D)
+    lap("3d")
     # the Stokes slice
     check_small_stokes(dev, record)
     sk = timed_stokes(dev, record, card)
     stokes_float32_history(dev, record, card, sk["residual_history"])
+    lap("stokes")
     # the 3-D Stokes slice
     small3 = (STOKES3D["small_n"], STOKES3D["small_n_t"])
     check_small_stokes(dev, record, "small_f64_stokes3d",
@@ -1030,20 +1375,34 @@ def main():
                       "stokes3d_16cubed_nt8_kkt_solve_cuda",
                       stokes3d_problem, (STOKES3D["n"], STOKES3D["n_t"]),
                       LAMBDA_STOKES3D, KEYS_STOKES3D)
+    lap("stokes3d")
     # the Q2 heat slice
     nq, ntq = HEAT3D_Q2["small_n"], HEAT3D_Q2["small_n_t"]
     check_small_f64(dev, record, "small_f64_heat3d_q2", (
         (f"q2 {nq}^3x{ntq}", heat3d_q2_problem, "paradiag", nq, ntq,
          LAMBDA_Q2),
         (f"q2 {nq}^3x{ntq}", heat3d_q2_problem, "scan", nq, ntq,
+         LAMBDA_Q2),
+        (f"q2 {nq}^3x{ntq} bfloat16 weights",
+         with_weights(heat3d_q2_problem, "bfloat16"), "paradiag", nq, ntq,
          LAMBDA_Q2)))
     q2 = timed_solve(dev, record, card, "heat3d_q2",
                      "heat3d_q2_32cubed_nt16_kkt_solve_cuda",
                      heat3d_q2_problem, (HEAT3D_Q2["n"], HEAT3D_Q2["n_t"]),
                      LAMBDA_Q2, SOLVER_PARAMETERS["maximum_iterations"],
                      KEYS_3D_Q2)
+    q2n = timed_solve(dev, record, card, "heat3d_q2_bf16",
+                      "heat3d_q2_32cubed_nt16_kkt_solve_bf16_cuda",
+                      with_weights(heat3d_q2_problem, WEIGHT_DTYPE),
+                      (HEAT3D_Q2["n"], HEAT3D_Q2["n_t"]), LAMBDA_Q2,
+                      SOLVER_PARAMETERS["maximum_iterations"],
+                      KEYS_3D_Q2_BF16, full_row=q2, gated=False,
+                      full_build=heat3d_q2_problem)
     scan_once(dev, record, "heat3d_q2_scan", heat3d_q2_problem,
               (HEAT3D_Q2["n"], HEAT3D_Q2["n_t"]), LAMBDA_Q2)
+
+    lap("heat3d_q2")
+    print(f"phase seconds {json.dumps(marks)}", flush=True)
 
     def row(kname, source, replaces, key, launches, checks_rows,
             dtype="float32"):
@@ -1052,7 +1411,7 @@ def main():
         rows = [r for r in checks_rows if r["dtype"] == dtype]
         main = rows[0]
         return {"name": kname, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[key],
+                "replaces": replaces, "launches": launches.get(key, 0),
                 "max_abs_err": max(r["max_abs_err"] for r in rows),
                 "ms": main["ms"], "plain_ms": main["plain_ms"],
                 "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
@@ -1060,9 +1419,14 @@ def main():
 
     apply_src = "control_tpu_torch/csrc/stencil_apply.cu"
     cheb_src = "control_tpu_torch/csrc/cheb_smooth.cu"
+    narrow_src = "control_tpu_torch/csrc/cheb_smooth_narrow.cu"
     vector_src = "control_tpu_torch/csrc/cheb_smooth_vector.cu"
     fl, hl, sl = flag["launches"], h3["launches"], sk["launches"]
     s3l, ql = s3["launches"], q2["launches"]
+    fnl, hnl, qnl = (flag_n["launches"], h3n["launches"],
+                     q2n["launches"])
+    m2l = mg_n["multigrid_2d"]["launches"]
+    m3l = mg_n["multigrid_3d"]["launches"]
     kernels_line = {"kernels": [
         row("K1 stencil_apply", apply_src, "control_tpu/ops/stencil.py:206",
             "stencil_apply", fl, checks["K1"]),
@@ -1096,6 +1460,21 @@ def main():
         row("K6 stencil_apply 3-D (degree 2)", apply_src,
             "control_tpu/ops/stencil.py:255", "stencil_apply_3d_q2", ql,
             checks["K6q2"]),
+        row("K3 cheb_smooth (complex, bf16 weights)", narrow_src,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex_bf16",
+            fnl, checks["K3n"]),
+        row("K5 cheb_smooth 3-D (complex, bf16 weights)", narrow_src,
+            "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex_bf16",
+            hnl, checks["K5cn"]),
+        row("K5 cheb_smooth 3-D (complex, degree 2, bf16 weights)",
+            narrow_src, "control_tpu/ops/stencil.py:1090",
+            "cheb_smooth_3d_complex_q2_bf16", qnl, checks["K5cnq2"]),
+        row("K2 cheb_smooth (real, bf16 weights)", narrow_src,
+            "control_tpu/ops/stencil.py:589", "cheb_smooth_real_bf16", m2l,
+            checks["K2n"]),
+        row("K5 cheb_smooth 3-D (real, bf16 weights)", narrow_src,
+            "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real_bf16",
+            m3l, checks["K5rn"]),
     ]}
     record["kernels"] = kernels_line["kernels"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

@@ -1,8 +1,16 @@
 // Arithmetic on the field types of the stencil kernels: real (float,
 // double) and interleaved complex (float2, double2, the storage layout of
 // torch's complex64/complex128).  R is the matching real type.
+//
+// Weight planes may be stored narrower than the field (the reference's
+// ``weight_dtype``): real weights as __nv_bfloat16, __half or float, complex
+// ones as interleaved (re, im) pairs __nv_bfloat162, __half2 or float2.
+// f_load widens one stored value to the field type V exactly, as the TPU
+// kernel upcasts each plane on load; all arithmetic stays in V.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 template <typename V> struct RealOf;
@@ -64,14 +72,52 @@ __device__ __forceinline__ double2 f_rdiv(double2 a, double s) {
     return make_double2(a.x / s, a.y / s);
 }
 
+// a stored weight as a value of the field type V (exact widening; the
+// identity when the weight is stored as V)
+template <typename V>
+__device__ __forceinline__ V f_load(V, V w) { return w; }
+__device__ __forceinline__ float f_load(float, __nv_bfloat16 w) {
+    return __bfloat162float(w);
+}
+__device__ __forceinline__ float f_load(float, __half w) {
+    return __half2float(w);
+}
+__device__ __forceinline__ double f_load(double, __nv_bfloat16 w) {
+    return (double)__bfloat162float(w);
+}
+__device__ __forceinline__ double f_load(double, __half w) {
+    return (double)__half2float(w);
+}
+__device__ __forceinline__ double f_load(double, float w) {
+    return (double)w;
+}
+__device__ __forceinline__ float2 f_load(float2, __nv_bfloat162 w) {
+    return make_float2(__bfloat162float(w.x), __bfloat162float(w.y));
+}
+__device__ __forceinline__ float2 f_load(float2, __half2 w) {
+    return make_float2(__half2float(w.x), __half2float(w.y));
+}
+__device__ __forceinline__ double2 f_load(double2, __nv_bfloat162 w) {
+    return make_double2((double)__bfloat162float(w.x),
+                        (double)__bfloat162float(w.y));
+}
+__device__ __forceinline__ double2 f_load(double2, __half2 w) {
+    return make_double2((double)__half2float(w.x),
+                        (double)__half2float(w.y));
+}
+__device__ __forceinline__ double2 f_load(double2, float2 w) {
+    return make_double2((double)w.x, (double)w.y);
+}
+
 // y(iz, iy, ix) = sum_k w[k](iz, iy, ix) * x(iz + dz_k, iy + dy_k, ix + dx_k),
 // zero outside the grid; offsets k run ([dz,] dy, dx) lexicographically
 // over [-D, D]^ND, the order of stencil_offsets() in ops/stencil.py.  A
 // 2-D grid is the case ND = 2, nz = 1, iz = 0 (no z offsets).  w points at
 // the first of the K = (2D+1)^ND weight volumes of this batch entry, x at
-// its field volume.
-template <int ND, int D, typename V>
-__device__ __forceinline__ V stencil_at(const V* __restrict__ w,
+// its field volume.  The weights are stored as Wt (V, or a narrower type
+// that f_load widens); offsets into w count elements of Wt.
+template <int ND, int D, typename V, typename Wt>
+__device__ __forceinline__ V stencil_at(const Wt* __restrict__ w,
                                         const V* __restrict__ x, int iz,
                                         int iy, int ix, int nz, int ny,
                                         int nx) {
@@ -92,7 +138,7 @@ __device__ __forceinline__ V stencil_at(const V* __restrict__ w,
                 const int xx = ix + dx;
                 if ((ND == 2 || (z >= 0 && z < nz)) && y >= 0 && y < ny &&
                     xx >= 0 && xx < nx) {
-                    acc = f_add(acc, f_mul(w[k * vol + node],
+                    acc = f_add(acc, f_mul(f_load(V(), w[k * vol + node]),
                                            x[((size_t)z * ny + y) * nx + xx]));
                 }
             }

@@ -194,9 +194,13 @@ class _ParaDiagSweep:
             self._wS = node_stencil(sub_A[0].expand(diag_A.shape[1:]),
                                     space, mask=mask, alpha=0.0)
         else:
-            self.params = state["params"]
+            # a state carried from the JAX package holds full planes; the
+            # port's own holds them narrow already
+            self.params = self.config.store(state["params"])
             self._wF = state["wF"]
             self._wS = state["wS"]
+        # the defect-correction stencils stay in full precision (the
+        # reference's), whatever weight_dtype the V-cycles store
         self.state = {"params": self.params, "wF": self._wF,
                       "wS": self._wS}
         # time-axis DFT as small dense complex products (the reference's
@@ -578,7 +582,8 @@ class Instationary:
         V-cycle count of the per-frequency solves (default 2), the
         (pre, post) Chebyshev smoothing step counts of the ParaDiag
         frequency V-cycles (default (8, 8)), or the storage dtype of the
-        smoothers' weight planes (e.g. "bfloat16", plain version only).
+        ParaDiag smoothers' weight planes (e.g. "bfloat16": the narrow
+        K3/K5 kernels on the card).
         ``steps`` belongs to the jacobi sweep, which is not ported."""
         if mode == "jacobi" or steps is not None:
             raise NotImplementedError(

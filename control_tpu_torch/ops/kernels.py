@@ -27,14 +27,17 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil_apply.cu", "cheb_smooth.cu",
+SOURCES = ("stencil_apply.cu", "cheb_smooth.cu", "cheb_smooth_narrow.cu",
            "cheb_smooth_vector.cu")
-HEADERS = ("field_ops.cuh",)
+HEADERS = ("field_ops.cuh", "cheb_smooth.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # dtype codes shared with the C entry points
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1,
                torch.complex64: 2, torch.complex128: 3}
+# storage codes of narrow weight planes (``cheb_smooth_narrow``); complex
+# fields read (re, im) pairs of the same type
+WEIGHT_CODES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
 
 _lib = None
 
@@ -118,6 +121,12 @@ def library():
                                     i32, vp, vp, vp, vp, i32, i32, i32, i32,
                                     i32, i32, i32, vp]
         lib.cheb_smooth.restype = i32
+        # (dtype, wdtype, then as cheb_smooth)
+        lib.cheb_smooth_narrow.argtypes = [i32, i32, vp, i64, vp, i64, vp,
+                                           vp, vp, vp, i32, vp, vp, vp, vp,
+                                           i32, i32, i32, i32, i32, i32, i32,
+                                           vp]
+        lib.cheb_smooth_narrow.restype = i32
         # (..., th_stride, coef, x_out, x_tmp, p, r, n, ny, nx, degree,
         # steps, stream)
         lib.cheb_smooth_vector.argtypes = [i32, vp, i64, vp, i64, vp, vp,

@@ -85,19 +85,44 @@ class LocalOp:
     def to_dense(self):
         """Assemble the full dense matrix (small problems / coarse grids /
         tests).  Returns (*batch, n_test_dofs, n_trial_dofs): leading batch
-        axes of ``A`` (one operator per batch entry) carry through."""
+        axes of ``A`` (one operator per batch entry) carry through.
+
+        Each nonzero entry sums its contributing cell-matrix entries in a
+        fixed order (a padded gather, no atomics), so the result does not
+        depend on thread scheduling: repeated builds of a coarse inverse
+        are bit-equal on the card."""
         tr, te = self.trial_space, self.test_space
         dev = self.A.device
-        gi_t = torch.as_tensor(_global_indices(te), device=dev)
-        gi_a = torch.as_tensor(_global_indices(tr), device=dev)
         E = tr.mesh.n_cells
         batch = tuple(self.A.shape[:-3])
         A = self.A.expand(batch + (E,) + tuple(self.A.shape[-2:]))
-        flat = (gi_t[:, :, None] * tr.n_dofs + gi_a[:, None, :]).reshape(-1)
+        nz, sources = _dense_sum_maps(te, tr)
+        vals = torch.nn.functional.pad(A.reshape(batch + (-1,)), (0, 1))
         out = torch.zeros(batch + (te.n_dofs * tr.n_dofs,),
                           dtype=A.dtype, device=dev)
-        out.index_add_(-1, flat, A.reshape(batch + (-1,)))
+        out[..., torch.as_tensor(nz, device=dev)] = \
+            vals[..., torch.as_tensor(sources, device=dev)].sum(-1)
         return out.reshape(batch + (te.n_dofs, tr.n_dofs))
+
+
+def _dense_sum_maps(test_space, trial_space):
+    """Index maps of ``LocalOp.to_dense`` (numpy): ``nz`` (m,) the
+    flattened positions of the m nonzero dense entries, and ``sources``
+    (m, c): for each, the positions in the flattened (E * b * a) cell
+    matrices that add up to it, in increasing order, padded with
+    E * b * a, the position of an appended zero."""
+    gi_t = _global_indices(test_space)
+    gi_a = _global_indices(trial_space)
+    flat = (gi_t[:, :, None] * trial_space.n_dofs
+            + gi_a[:, None, :]).ravel()
+    order = np.argsort(flat, kind="stable")
+    nz, starts, counts = np.unique(flat[order], return_index=True,
+                                   return_counts=True)
+    rank = np.arange(flat.size) - np.repeat(starts, counts)
+    sources = np.full((nz.size, int(counts.max())), flat.size,
+                      dtype=np.int64)
+    sources[np.repeat(np.arange(nz.size), counts), rank] = order
+    return nz, sources
 
 
 def _global_indices(space):

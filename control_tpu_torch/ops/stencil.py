@@ -26,6 +26,11 @@ operations of the preconditioner on the card:
   incompressible problems.
 
 The 3-D kernels take degree 1 (K = 27) and degree 2 (K = 125) stencils.
+K2, K3 and K5 (real and complex) also read weight and diagonal planes
+stored narrower than the fields (``weight_dtype``: bf16 or f16, or f32
+under float64 fields; complex planes as (re, im) pairs,
+``narrow_planes``), the reference's narrow weight storage; K4 and K5v do
+not, and raise.
 
 Each wrapper dispatches on the device of its tensors: a CPU tensor runs the
 plain PyTorch version beside it (``_apply_plain``, ``_cheb_plain``), a CUDA
@@ -46,13 +51,24 @@ from . import kernels
 
 # kernel launches per wrapper (one per call that reaches the card): K1,
 # K2, K3, K4 on 2-D grids; K6 and K5 (real, complex) on 3-D grids, at
-# degree 1 and (the ``_q2`` keys) degree 2; K5v on 3-D vector fields
+# degree 1 and (the ``_q2`` keys) degree 2; K5v on 3-D vector fields; the
+# narrow-weight variants below
 launch_counts = {"stencil_apply": 0, "cheb_smooth_real": 0,
                  "cheb_smooth_complex": 0, "cheb_smooth_vector": 0,
                  "stencil_apply_3d": 0, "cheb_smooth_3d_real": 0,
                  "cheb_smooth_3d_complex": 0, "stencil_apply_3d_q2": 0,
                  "cheb_smooth_3d_real_q2": 0,
                  "cheb_smooth_3d_complex_q2": 0, "cheb_smooth_3d_vector": 0}
+# narrow weight planes (``weight_dtype``): one key per scalar smoother
+# and storage, e.g. "cheb_smooth_3d_complex_q2_bf16"
+_WEIGHT_TAGS = {torch.bfloat16: "bf16", torch.float16: "f16",
+                torch.float32: "f32"}
+launch_counts.update({
+    f"{k}_{tag}": 0
+    for k in ("cheb_smooth_real", "cheb_smooth_complex",
+              "cheb_smooth_3d_real", "cheb_smooth_3d_complex",
+              "cheb_smooth_3d_real_q2", "cheb_smooth_3d_complex_q2")
+    for tag in _WEIGHT_TAGS.values()})
 
 # the vector apply forms its products one leading window offset at a time
 # when all K of them at once would take more than this (the 3-D Q2 weight
@@ -245,38 +261,36 @@ def _apply_plain(w, x, degree, nd=2):
     return out
 
 
-def _cuda_grid(w, x, degree, nd, what):
+def _cuda_grid(wshape, x, degree, nd, what):
     """Checks shared by the CUDA wrappers: a scalar stencil of degree 1 or
-    2 in 2-D or 3-D (the kernels built), one dtype and device, weights
-    (K, *grid) or (nw, K, *grid).  Returns the grid shape."""
-    if nd not in (2, 3) or _is_vector_stencil(w, nd):
+    2 in 2-D or 3-D (the kernels built), weights of shape ``wshape``
+    (K, *grid) or (nw, K, *grid) on the grid of x.  Returns the grid
+    shape."""
+    if nd not in (2, 3) or len(wshape) >= nd + 3:
         raise NotImplementedError(
             f"{what}: only scalar 2-D and 3-D stencils have a CUDA kernel")
     if degree not in (1, 2):
         raise NotImplementedError(
             f"{what}: no CUDA kernel for degree {degree} in {nd}-D")
-    if w.dtype != x.dtype or w.device != x.device:
-        raise TypeError(f"{what}: w and the fields need one dtype and "
-                        "device")
     grid = tuple(x.shape[-nd:])
-    if (tuple(w.shape[-nd:]) != grid
-            or w.shape[-(nd + 1)] != (2 * degree + 1) ** nd):
+    if (tuple(wshape[-nd:]) != grid
+            or wshape[-(nd + 1)] != (2 * degree + 1) ** nd):
         raise ValueError(f"{what}: weight shape mismatch")
     return grid
 
 
-def _batch_layout(w, lead, grid):
+def _batch_layout(wshape, lead, grid):
     """Broadcast batch shape, batch size and weight batch stride (0 for
-    shared weights) of leading field axes ``lead`` against weights
-    (K, *grid) or (nw, K, *grid)."""
+    shared weights) of leading field axes ``lead`` against weights of
+    shape ``wshape``, (K, *grid) or (nw, K, *grid)."""
     nd = len(grid)
-    wlead = tuple(w.shape[:-(nd + 1)])
+    wlead = tuple(wshape[:-(nd + 1)])
     bshape = torch.broadcast_shapes(wlead, lead)
     n = math.prod(bshape)
     nw = math.prod(wlead)
     if nw not in (1, n):
         raise ValueError("stencil batch mismatch")
-    K = w.shape[-(nd + 1)]
+    K = wshape[-(nd + 1)]
     return bshape, n, (K * math.prod(grid) if nw == n and n > 1 else 0)
 
 
@@ -286,11 +300,14 @@ def _zyx(grid):
 
 
 def _apply_cuda(w, x, degree, nd):
-    grid = _cuda_grid(w, x, degree, nd, "apply_stencil")
+    grid = _cuda_grid(w.shape, x, degree, nd, "apply_stencil")
+    if w.dtype != x.dtype or w.device != x.device:
+        raise TypeError("apply_stencil: w and the fields need one dtype "
+                        "and device")
     if nd == 3 and x.is_complex():
         raise NotImplementedError(
             "apply_stencil: no path applies a complex 3-D stencil")
-    bshape, n, w_bs = _batch_layout(w, tuple(x.shape[:-nd]), grid)
+    bshape, n, w_bs = _batch_layout(w.shape, tuple(x.shape[:-nd]), grid)
     wc = w.contiguous()
     xc = x.expand(bshape + grid).contiguous()
     y = torch.empty(bshape + grid, dtype=x.dtype, device=x.device)
@@ -335,19 +352,70 @@ def _expand_bound(s, b):
     return s.reshape(tuple(s.shape) + (1,) * (b.dim() - s.dim()))
 
 
-def _round_weights(w, dinv, b, weight_dtype):
-    """Round the weight and diagonal planes through ``weight_dtype`` (the
-    reference's narrow weight storage), keeping the field dtype."""
-    wdt = getattr(torch, str(weight_dtype))
+def _as_dtype(weight_dtype):
+    if isinstance(weight_dtype, torch.dtype):
+        return weight_dtype
+    return getattr(torch, str(weight_dtype))
 
-    def rnd(a):
-        if a.is_complex():
-            rdt = a.real.dtype
-            return torch.complex(a.real.to(wdt).to(rdt),
-                                 a.imag.to(wdt).to(rdt))
-        return a.to(wdt).to(b.dtype)
 
-    return rnd(w), rnd(dinv)
+def weight_storage_dtype(weight_dtype, field_dtype):
+    """The dtype in which weight planes are stored under ``weight_dtype``
+    for fields (or planes) of ``field_dtype``: ``weight_dtype`` when it is
+    narrower than their real dtype, else None -- rounding through an equal
+    or wider dtype is the identity (the reference's
+    ``w.astype(wdt).astype(b.dtype)``), so the planes stay as they are."""
+    if weight_dtype is None:
+        return None
+    wdt = _as_dtype(weight_dtype)
+    rdt = field_dtype.to_real() if field_dtype.is_complex else field_dtype
+    return wdt if wdt.itemsize < rdt.itemsize else None
+
+
+def _to_float32_odd(a):
+    """float64 -> float32 rounded to odd (truncate, then set the last bit
+    if anything was cut): rounding that float32 on to a format of at most
+    22 significand bits rounds as if straight from float64."""
+    r = a.to(torch.float32)
+    back = r.to(torch.float64)
+    inexact = back != a
+    bits = r.view(torch.int32)
+    # a step toward zero where the cast rounded away from it (the int32
+    # view of a float is sign and magnitude: minus one shrinks |r|)
+    bits = torch.where(inexact & (back.abs() > a.abs()), bits - 1, bits)
+    return torch.where(inexact, bits | 1, bits).view(torch.float32)
+
+
+def narrow_planes(a, weight_dtype):
+    """Weight or diagonal planes stored in ``weight_dtype``, rounded as the
+    JAX package's ``astype`` rounds them on the CPU: float64 to bfloat16
+    through float32 (torch's cast does the same), float64 to float16
+    directly (through float32 rounded to odd; torch's own cast would round
+    twice).  Real planes keep their shape, complex planes become (..., 2)
+    (re, im) pairs, since torch has no complex bfloat16 -- the interleaved
+    layout the narrow kernels read.  Only exact torch operations, so the
+    card makes the same bits as the CPU."""
+    wdt = _as_dtype(weight_dtype)
+    if a.is_complex():
+        a = torch.view_as_real(a)
+    if wdt == torch.float16 and a.dtype == torch.float64:
+        a = _to_float32_odd(a)
+    return a.to(wdt).contiguous()
+
+
+def _is_pairs(a, b):
+    """Whether planes ``a`` are narrow (re, im) pairs of complex fields b
+    (real storage of another dtype than b's real part)."""
+    return b.is_complex() and not a.is_complex() and a.dtype != b.real.dtype
+
+
+def widen_planes(a, b):
+    """Planes in the dtype of the fields ``b``: narrow storage widened
+    (exactly), planes in b's dtype unchanged."""
+    if _is_pairs(a, b):
+        return torch.view_as_complex(a.to(b.real.dtype).contiguous())
+    if a.is_complex() or b.is_complex():
+        return a
+    return a.to(b.dtype)
 
 
 def _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
@@ -356,8 +424,13 @@ def _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
     recurrence (``fused_cheb_smooth(use_pallas=False)``), real or complex,
     scalar or vector stencils, any ``nd``."""
     d = degree
-    if weight_dtype is not None:
-        w, dinv = _round_weights(w, dinv, b, weight_dtype)
+    # the narrow storage, widened: the values the narrow kernels compute
+    # with (planes in b's dtype under a narrower ``weight_dtype`` are
+    # rounded here, as the reference rounds them in each call)
+    wdt = weight_storage_dtype(weight_dtype, b.dtype)
+    if wdt is not None and w.dtype == b.dtype:
+        w, dinv = narrow_planes(w, wdt), narrow_planes(dinv, wdt)
+    w, dinv = widen_planes(w, b), widen_planes(dinv, b)
     rdt = b.real.dtype if b.is_complex() else b.dtype
 
     def bound(s):
@@ -403,29 +476,56 @@ def _bound_vector(s, n, rdt, device):
 
 
 def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
-               nd):
-    grid = _cuda_grid(w, b, degree, nd, "fused_cheb_smooth")
+               nd, weight_dtype=None):
+    """K2, K3 and K5 (real and complex).  w and dinv are planes in b's
+    dtype, or narrow planes (``narrow_planes``: bf16, f16 or, under
+    float64 fields, f32; complex ones as (re, im) pairs), which run the
+    narrow kernels.  Planes in b's dtype with a narrower ``weight_dtype``
+    are refused: a cast in every call would read the full planes and
+    write the narrow ones each time, so they are stored narrow once, as
+    the multigrid hierarchies do at build time."""
+    what = "fused_cheb_smooth"
     dt = b.dtype
-    for t in (dinv, x0):
-        if t.dtype != dt or t.device != b.device:
-            raise TypeError("fused_cheb_smooth: w, dinv, b, x0 need one "
-                            "dtype and device")
+    rdt = b.real.dtype if b.is_complex() else dt
+    narrow = w.dtype != dt
+    wdt = weight_storage_dtype(weight_dtype, dt)
+    if wdt is not None and not narrow:
+        raise TypeError(f"{what}: weight_dtype {weight_dtype} asks for "
+                        f"narrow planes, but they come in {dt}: store them "
+                        "with narrow_planes first (a multigrid hierarchy "
+                        "does so once per build)")
+    if narrow and (w.dtype not in kernels.WEIGHT_CODES
+                   or weight_storage_dtype(w.dtype, dt) is None
+                   or wdt not in (None, w.dtype)
+                   or (b.is_complex() and w.shape[-1] != 2)):
+        raise TypeError(f"{what}: weight planes stored as {w.dtype} do "
+                        f"not fit {dt} fields (weight_dtype "
+                        f"{weight_dtype})")
+    pair = (2,) if narrow and b.is_complex() else ()
+    wshape = tuple(w.shape[:w.dim() - len(pair)])
+    grid = _cuda_grid(wshape, b, degree, nd, what)
+    if (dinv.dtype != w.dtype or w.device != b.device
+            or dinv.device != b.device):
+        raise TypeError(f"{what}: w and dinv need one dtype, on the "
+                        "device of the fields")
+    if x0.dtype != dt or x0.device != b.device:
+        raise TypeError(f"{what}: b and x0 need one dtype and device")
     if b.dim() not in (nd, nd + 1):
-        raise ValueError("fused_cheb_smooth: b must be (*grid) or "
-                         "(n, *grid)")
+        raise ValueError(f"{what}: b must be (*grid) or (n, *grid)")
     lead = tuple(b.shape[:-nd])
-    bshape, n, w_bs = _batch_layout(w, lead, grid)
+    bshape, n, w_bs = _batch_layout(wshape, lead, grid)
     if bshape != lead:
-        raise ValueError("fused_cheb_smooth: weights batch exceeds b")
-    # dinv: shared volume (stride 0) or one volume per batch entry
-    dlead = tuple(dinv.shape[:-nd])
+        raise ValueError(f"{what}: weights batch exceeds b")
+    # dinv: shared volume (stride 0) or one volume per batch entry; strides
+    # count stored values (pairs of narrow complex planes)
+    dlead = tuple(dinv.shape[:dinv.dim() - nd - len(pair)])
     if math.prod(dlead) == 1:
-        dc, d_bs = dinv.reshape(grid).contiguous(), 0
+        dc, d_bs = dinv.reshape(grid + pair).contiguous(), 0
     else:
-        dc, d_bs = dinv.expand(lead + grid).contiguous(), math.prod(grid)
+        dc = dinv.expand(lead + grid + pair).contiguous()
+        d_bs = math.prod(grid)
     bc = b.contiguous()
     xc = x0.expand(lead + grid).contiguous()
-    rdt = b.real.dtype if b.is_complex() else dt
     th, th_s = _bound_vector(theta, n, rdt, b.device)
     de, de_s = _bound_vector(delta, n, rdt, b.device)
     if th_s != de_s:
@@ -437,16 +537,23 @@ def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
     p = torch.empty_like(bc)
     r = torch.empty_like(bc) if want_residual else None
     lib = kernels.library()
-    code = lib.cheb_smooth(
-        kernels.DTYPE_CODES[dt], w.contiguous().data_ptr(), w_bs,
-        dc.data_ptr(), d_bs, bc.data_ptr(), xc.data_ptr(), th.data_ptr(),
-        de.data_ptr(), th_s, x_out.data_ptr(), x_tmp.data_ptr(),
-        p.data_ptr(), None if r is None else r.data_ptr(), max(n, 1),
-        *_zyx(grid), nd, degree, int(steps), kernels.stream_ptr(b.device))
-    kernels.check(code, "cheb_smooth")
+    args = (w.contiguous().data_ptr(), w_bs, dc.data_ptr(), d_bs,
+            bc.data_ptr(), xc.data_ptr(), th.data_ptr(), de.data_ptr(),
+            th_s, x_out.data_ptr(), x_tmp.data_ptr(), p.data_ptr(),
+            None if r is None else r.data_ptr(), max(n, 1), *_zyx(grid), nd,
+            degree, int(steps), kernels.stream_ptr(b.device))
     kind = "complex" if b.is_complex() else "real"
-    launch_counts[_key_3d(f"cheb_smooth_3d_{kind}", degree) if nd == 3
-                  else f"cheb_smooth_{kind}"] += 1
+    key = (_key_3d(f"cheb_smooth_3d_{kind}", degree) if nd == 3
+           else f"cheb_smooth_{kind}")
+    if narrow:
+        code = lib.cheb_smooth_narrow(kernels.DTYPE_CODES[dt],
+                                      kernels.WEIGHT_CODES[w.dtype], *args)
+        kernels.check(code, "cheb_smooth_narrow")
+        key += "_" + _WEIGHT_TAGS[w.dtype]
+    else:
+        kernels.check(lib.cheb_smooth(kernels.DTYPE_CODES[dt], *args),
+                      "cheb_smooth")
+    launch_counts[key] += 1
     return (x_out, r) if want_residual else x_out
 
 
@@ -545,19 +652,32 @@ def fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta, degree,
     (2-D) or K5 (3-D), real 2-D vector fields with dim = 2 kernel K4 and
     real 3-D ones with dim = 3 kernel K5v (other vector fields raise
     ``NotImplementedError``); CPU tensors run
-    ``_cheb_plain``.  ``weight_dtype`` (e.g. "bfloat16") rounds the weight
-    and diagonal planes through a narrower dtype; only the plain version
-    implements it.  Returns x (and r = b - A x).
+    ``_cheb_plain``.
+
+    ``weight_dtype`` (e.g. "bfloat16") stores the weight and diagonal
+    planes in a narrower dtype while the field arithmetic stays in
+    b's dtype.  On the CPU w and dinv may come in b's dtype (rounded in
+    the call) or stored narrow (``narrow_planes``); on the card they must
+    come stored narrow.  There, scalar stencils with a ``weight_dtype``
+    narrower than the fields' real dtype (bf16 or f16; f32 under float64
+    fields) run the narrow variants of K2/K3/K5; an
+    equal or wider one rounds nothing and runs the kernels above; vector
+    stencils (K4, K5v) have no narrow kernel and raise
+    ``NotImplementedError``.  Returns x (and r = b - A x).
     """
     if b.is_cuda:
-        if weight_dtype is not None:
-            raise NotImplementedError(
-                "weight_dtype has no CUDA kernel yet")
-        if _is_vector_stencil(w, nd):
+        if _is_vector_stencil(w, nd) and not _is_pairs(w, b):
+            if (w.dtype != b.dtype
+                    or weight_storage_dtype(weight_dtype, b.dtype)):
+                raise NotImplementedError(
+                    "fused_cheb_smooth: narrow weight planes (weight_dtype "
+                    f"{weight_dtype}) on vector stencils have no CUDA "
+                    "kernel (K4, K5v store their weights in the field "
+                    "dtype)")
             return _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta,
                                      degree, want_residual, nd)
         return _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree,
-                          want_residual, nd)
+                          want_residual, nd, weight_dtype)
     return _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
                        want_residual=want_residual,
                        weight_dtype=weight_dtype, nd=nd)

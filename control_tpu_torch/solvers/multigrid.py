@@ -14,7 +14,8 @@ so:
   matrices,
 * Chebyshev-Jacobi smoothing (kernels K2/K3 on the card, K5 on 3-D grids,
   K4 / K5v on 2-D / 3-D vector spaces) with Gershgorin bounds from the
-  node stencils,
+  node stencils; with a narrower ``weight_dtype`` the scalar smoothers'
+  weight planes are stored narrow once per build,
 * a dense inverse on the coarsest level.
 
 Hierarchies take leading batch axes on the fine local matrices: one
@@ -31,7 +32,8 @@ from ..fem import elements
 from ..fem.space import FunctionSpace
 from ..ops.local_op import LocalOp, MaskedOp, _global_indices
 from ..ops.stencil import (node_stencil, stencil_diag, stencil_abs_rowsum,
-                           fused_cheb_smooth)
+                           fused_cheb_smooth, narrow_planes,
+                           weight_storage_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -175,11 +177,19 @@ class Transfer:
     def _conv(fn, xb, k, **kw):
         """Real-kernel convolution, applied to the real and imaginary parts
         of complex fields separately (the ParaDiag frequency operators are
-        complex; convolutions are real)."""
-        if xb.is_complex():
-            return torch.complex(fn(xb.real.contiguous(), k, **kw),
-                                 fn(xb.imag.contiguous(), k, **kw))
-        return fn(xb, k, **kw)
+        complex; convolutions are real).  cuDNN runs it with a
+        deterministic algorithm: the one it picks by default for the 3-D
+        transposed convolution adds in no fixed order, so repeated stokes3d
+        solves on the card parted in their last bits."""
+        cudnn = torch.backends.cudnn
+        deterministic, cudnn.deterministic = cudnn.deterministic, True
+        try:
+            if xb.is_complex():
+                return torch.complex(fn(xb.real.contiguous(), k, **kw),
+                                     fn(xb.imag.contiguous(), k, **kw))
+            return fn(xb, k, **kw)
+        finally:
+            cudnn.deterministic = deterministic
 
     def _weights(self, x):
         rdt = x.real.dtype if x.is_complex() else x.dtype
@@ -274,8 +284,9 @@ class MGConfig:
     def __init__(self, space, mask=None, *, levels=None, pre=8, post=8,
                  coarse_max_dofs=4500, lam_frac=4.0, lam_safety=1.05,
                  weight_dtype=None):
-        # weight_dtype (e.g. "bfloat16"): round the smoothers' weight
-        # planes through a narrower dtype (plain version only)
+        # weight_dtype (e.g. "bfloat16"): store the smoothers' weight and
+        # diagonal planes in a narrower dtype (field arithmetic stays in
+        # the problem dtype); ``build`` makes the narrow planes once
         self.weight_dtype = weight_dtype
         self.pre, self.post = pre, post
         self.lam_frac, self.lam_safety = lam_frac, lam_safety
@@ -316,7 +327,10 @@ class MGConfig:
         """Params for fine-level local matrices ``A`` (*batch, E, b, a):
         per level the node stencil ``Ws``, its diagonal ``diags`` and
         inverse ``dinvs``, Gershgorin bounds ``lams`` (*batch, levels), and
-        the coarsest dense inverse ``Ainv`` (*batch, m, m)."""
+        the coarsest dense inverse ``Ainv`` (*batch, m, m).  The bounds and
+        diagonals come from the full-precision stencils; with a narrower
+        ``weight_dtype`` the smoothers' ``Ws`` and ``dinvs`` are then
+        stored narrow (``store``)."""
         As = [A]
         for tr in self.transfers:
             As.append(tr.galerkin(As[-1]))
@@ -335,8 +349,21 @@ class MGConfig:
                 ratio, dim=tuple(range(-len(sp_l.grid_shape), 0))))
         # coarsest solve as a precomputed dense inverse
         Ainv = _dense_inv(ops[-1].to_dense())
-        return {"Ws": Ws, "diags": diags, "dinvs": dinvs,
-                "lams": torch.stack(lams, dim=-1), "Ainv": Ainv}
+        return self.store({"Ws": Ws, "diags": diags, "dinvs": dinvs,
+                           "lams": torch.stack(lams, dim=-1), "Ainv": Ainv})
+
+    def store(self, params):
+        """``params`` with every level's weight and inverse-diagonal planes
+        in the narrow storage of ``weight_dtype`` (``narrow_planes``:
+        complex planes as (re, im) pairs) where it is narrower than the
+        problem dtype, so that no smoothing call casts them.  Planes that
+        are already narrow (a pc state passed back as ``prebuilt``) pass
+        through, as do all planes without a narrower ``weight_dtype``."""
+        def narrow(a):
+            wdt = weight_storage_dtype(self.weight_dtype, a.dtype)
+            return a if wdt is None else narrow_planes(a, wdt)
+        return dict(params, Ws=[narrow(w) for w in params["Ws"]],
+                    dinvs=[narrow(d) for d in params["dinvs"]])
 
     # -- application --------------------------------------------------------
     def _bounds(self, lam):

@@ -10,8 +10,13 @@ in turns within one call on one card):
     python3 control_tpu_torch/tools/profile_slice.py profile heat3d
         one torch.profiler trace of a repeat heat3d (64^3 x 16, f32,
         ParaDiag) solve: device busy share (union of kernel intervals over
-        the solve's wall time) and device time by kernel, one JSON line;
-        ``profile flagship`` does the same for the 2-D flagship;
+        the solve's wall time), device time by kernel and the complex
+        smoothers' (K3, K5 complex) share of it, one JSON line;
+        ``profile flagship`` and ``profile heat3d_q2`` (hex Q2 32^3 x 16)
+        do the same for the 2-D flagship and the Q2 heat slice, and the
+        targets ``flagship_bf16``, ``heat3d_bf16`` and ``heat3d_q2_bf16``
+        for the same solves with the ParaDiag weight planes stored in
+        bfloat16 (``weight_dtype``);
     python3 control_tpu_torch/tools/profile_slice.py profile stokes
         the Stokes slice (64^2 x 32, f64, scan): the repeat solve timed
         unprofiled, then a trace of a window of it, the first two outer
@@ -39,6 +44,23 @@ in turns within one call on one card):
         outer iterations (default 64 32 100), without raising when it does
         not converge, with its seconds: one JSON line.
 
+    python3 control_tpu_torch/tools/profile_slice.py history <slice> \
+            float32|float64 [n n_t [iterations]] [cpu]
+        the same for a ParaDiag slice (flagship, heat3d, heat3d_q2 or
+        their _bf16 targets; default their chip_smoke.py size and a budget
+        of 50); ``cpu`` runs it on the CPU (the plain versions, no card
+        needed), to hold the card's history against it.
+
+    python3 control_tpu_torch/tools/profile_slice.py determinism \
+            stokes|stokes3d [n n_t]
+        whether a Stokes solve (default its chip_smoke.py size, f64)
+        repeats itself in one process: two preconditioner builds (every
+        coarse dense inverse compared bit for bit), then pairs of solves
+        (iterations, residual histories bit for bit): with torch's
+        defaults (the transfers ask cuDNN for deterministic algorithms
+        themselves) and under ``torch.use_deterministic_algorithms(True)``:
+        one JSON line.
+
     python3 control_tpu_torch/tools/profile_slice.py precision stokes \
             [n n_t [iterations]]
         where float32 loses the Stokes solve (default 64 8 20): the
@@ -47,7 +69,8 @@ in turns within one call on one card):
         preconditioner applied in float64; and the float32-against-float64
         error of each stage of the preconditioner on one seeded input.
 
-Needs one CUDA card; imports nothing of JAX.
+Needs one CUDA card (``history ... cpu`` does not); imports nothing of
+JAX.
 """
 
 import bisect
@@ -65,7 +88,10 @@ import chip_smoke  # noqa: E402  (the checkout's own problem definitions)
 
 SOLVER_PARAMETERS = chip_smoke.SOLVER_PARAMETERS
 SLICES = {"flagship": ((256, 64), (0.25, 2.25), "heat_problem"),
-          "heat3d": ((64, 16), (0.125, 3.375), "heat3d_problem")}
+          "heat3d": ((64, 16), (0.125, 3.375), "heat3d_problem"),
+          "heat3d_q2": ((32, 16), (0.1, 2.3), "heat3d_q2_problem")}
+# the ParaDiag slices with their weight planes stored narrow
+NARROW = {f"{k}_bf16": (k, "bfloat16") for k in SLICES}
 STOKES_SLICES = {
     "stokes": ((chip_smoke.STOKES["n"], chip_smoke.STOKES["n_t"]),
                "stokes_problem", chip_smoke.LAMBDA_STOKES),
@@ -93,12 +119,19 @@ def problem(name):
                 ConstantNullspace(), solver_parameters=parameters,
                 print_error=False, **lambdas)
         return ctl, solve, lambda: solve(window)
+    name, weight_dtype = NARROW.get(name, (name, None))
     (n, n_t), bounds, maker = SLICES[name]
     ctl = getattr(chip_smoke, maker)(n, n_t, torch.float32, dev, "paradiag")
+    parameters = SOLVER_PARAMETERS
+    if weight_dtype is not None:
+        ctl.set_schur_sweep("paradiag", weight_dtype=weight_dtype)
+        # the 3-D slices stall with bfloat16 weights at this width
+        # (ROADMAP.md Queue 3): the solve reports its budget's end
+        parameters = dict(parameters, preconditioner=True)
 
     def solve():
         return ctl.linear_solve(lambda_v_bounds=bounds,
-                                solver_parameters=SOLVER_PARAMETERS,
+                                solver_parameters=parameters,
                                 print_error=False)
     return ctl, solve, solve
 
@@ -199,9 +232,12 @@ K5V_NAMES = ("vector_cheb_kernel<3,", "vector3_step_kernel",
 def profile(name):
     from torch.profiler import profile as tprofile, ProfilerActivity
     from control_tpu_torch.solvers.multigrid import Transfer
+    from control_tpu_torch.ops import stencil as st
     ctl, solve, window = problem(name)
     first_s, _ = timed(solve)
+    st.reset_launch_counts()
     plain_s, info = timed(solve)
+    launches = {k: v for k, v in st.launch_counts.items() if v}
     window_s, _ = timed(window)
     for method in ("prolong", "restrict"):
         _in_range(Transfer, method, RANGE)
@@ -225,8 +261,18 @@ def profile(name):
     def ms(events):
         return sum(e.time_range.elapsed_us() for e in events) / 1e3
 
+    def complex_smoother(e, nd):
+        # cheb_smooth.cuh's kernels on complex fields (full or narrow
+        # weights): cheb_step_kernel<nd, D, float2|double2, ...>
+        return (any(f"{k}<{nd}," in e.name
+                    for k in ("cheb_step_kernel", "residual_kernel"))
+                and any(f", {v}," in e.name for v in ("float2", "double2")))
+
     device_ms = ms(kernels)
+    k3_ms = ms(e for e in kernels if complex_smoother(e, 2))
+    k5c_ms = ms(e for e in kernels if complex_smoother(e, 3))
     return {"slice": name, "iterations": info.iterations,
+            "converged": info.converged,
             "relative_residual": info.rnorm / info.rnorm0,
             "first_solve_s": first_s, "solve_s": plain_s,
             "traced_iterations": winfo.iterations,
@@ -239,6 +285,11 @@ def profile(name):
             "k5v_device_ms": ms(e for e in kernels
                                 if any(k in e.name for k in K5V_NAMES)),
             "mg_transfer_device_ms": ms(e for e in kernels if in_range(e)),
+            "k3_device_ms": k3_ms, "k5_complex_device_ms": k5c_ms,
+            "k3_share_of_device": k3_ms / device_ms,
+            "k5_complex_share_of_device": k5c_ms / device_ms,
+            "weight_dtype": NARROW.get(name, (name, None))[1],
+            "launches": dict(launches),
             "device_ms_by_kernel": top}
 
 
@@ -346,26 +397,90 @@ def vector():
     return {"vector": rows}
 
 
-def history(dtype, n, n_t, budget):
-    """The Stokes solve's residual history in ``dtype`` within ``budget``
-    outer iterations; a solve that does not converge is reported, not
+def history(name, dtype, n, n_t, budget, device="cuda"):
+    """A slice's residual history in ``dtype`` within ``budget`` outer
+    iterations; a solve that does not converge is reported, not
     raised."""
     from control_tpu_torch import ConstantNullspace
-    ctl = chip_smoke.stokes_problem(n, n_t, getattr(torch, dtype),
-                                    torch.device("cuda", 0))
-    parameters = dict(chip_smoke.STOKES_PARAMETERS, preconditioner=True,
-                      maximum_iterations=budget)
-    seconds, info = timed(lambda: ctl.incompressible_linear_solve(
-        ConstantNullspace(), solver_parameters=parameters,
-        print_error=False, **chip_smoke.LAMBDA_STOKES))
+    dev = torch.device(device)
+    if name == "stokes":
+        ctl = chip_smoke.stokes_problem(n, n_t, getattr(torch, dtype), dev)
+        parameters = dict(chip_smoke.STOKES_PARAMETERS, preconditioner=True,
+                          maximum_iterations=budget)
+
+        def solve():
+            return ctl.incompressible_linear_solve(
+                ConstantNullspace(), solver_parameters=parameters,
+                print_error=False, **chip_smoke.LAMBDA_STOKES)
+    else:
+        base, weight_dtype = NARROW.get(name, (name, None))
+        _, bounds, maker = SLICES[base]
+        ctl = getattr(chip_smoke, maker)(n, n_t, getattr(torch, dtype), dev,
+                                         "paradiag")
+        if weight_dtype is not None:
+            ctl.set_schur_sweep("paradiag", weight_dtype=weight_dtype)
+        parameters = dict(SOLVER_PARAMETERS, preconditioner=True,
+                          maximum_iterations=budget)
+
+        def solve():
+            return ctl.linear_solve(lambda_v_bounds=bounds,
+                                    solver_parameters=parameters,
+                                    print_error=False)
+    if dev.type == "cuda":
+        seconds, info = timed(solve)
+    else:
+        t0 = time.perf_counter()
+        info = solve()
+        seconds = time.perf_counter() - t0
     its = info.iterations
-    return {"slice": "stokes", "dtype": dtype, "n": n, "n_t": n_t,
+    return {"slice": name, "device": device, "dtype": dtype, "n": n,
+            "n_t": n_t,
             "budget": budget, "iterations": its,
             "converged": info.converged,
             "relative_residual": info.rnorm / info.rnorm0,
             "first_solve_s": seconds,
             "relative_history": [float(r / info.res_norms[0])
                                  for r in info.res_norms[:its + 1]]}
+
+
+def determinism(name, n, n_t):
+    """Repeat builds and solves of a Stokes slice in one process."""
+    from control_tpu_torch import ConstantNullspace
+    dev = torch.device("cuda", 0)
+    _, maker, lambdas = STOKES_SLICES[name]
+    ctl = getattr(chip_smoke, maker)(n, n_t, torch.float64, dev)
+
+    def solve(**extra):
+        return ctl.incompressible_linear_solve(
+            ConstantNullspace(), solver_parameters=chip_smoke.
+            STOKES_PARAMETERS, print_error=False, **lambdas, **extra)
+
+    first, second = (
+        chip_smoke.dense_inverses(solve(_return_pieces=True)[1].state)
+        for _ in range(2))
+    out = {"slice": name, "dtype": "float64", "n": n, "n_t": n_t,
+           "dense_inverses": {k: list(v.shape) for k, v in first.items()},
+           "dense_inverses_bit_equal": all(
+               torch.equal(first[k], second[k]) for k in first)}
+    modes = {"default": False, "deterministic_algorithms": True}
+    for mode, strict in modes.items():
+        runs = []
+        for _ in range(2):
+            torch.use_deterministic_algorithms(strict)
+            seconds, info = timed(solve)
+            runs.append((info, seconds))
+        torch.use_deterministic_algorithms(False)
+        hists = [np.asarray(i.res_norms[:i.iterations + 1]) for i, _ in runs]
+        k = min(len(h) for h in hists)
+        out[mode] = {
+            "iterations": [i.iterations for i, _ in runs],
+            "relative_residual": [i.rnorm / i.rnorm0 for i, _ in runs],
+            "solve_s": [s for _, s in runs],
+            "histories_bit_equal": bool(np.array_equal(*hists)),
+            "history_max_rel": float(np.max(np.abs(hists[0][:k]
+                                                   - hists[1][:k])
+                                            / hists[0][:k]))}
+    return out
 
 
 def precision(n, n_t, budget):
@@ -465,22 +580,37 @@ def precision(n, n_t, budget):
 
 
 def main(argv):
-    if not torch.cuda.is_available():
+    on_cpu = argv[:1] == ["history"] and argv[-1:] == ["cpu"]
+    if on_cpu:
+        argv = argv[:-1]
+    elif not torch.cuda.is_available():
         print("profile_slice: no CUDA device", file=sys.stderr)
         return 1
-    card = chip_smoke.card_line()
+    card = "cpu" if on_cpu else chip_smoke.card_line()
+    paradiag = list(SLICES) + list(NARROW)
     if argv[:1] == ["kernels2d"]:
         out = kernels2d()
     elif argv == ["vector"]:
         out = vector()
     elif argv[:1] == ["profile"] and len(argv) == 2 and (
-            argv[1] in SLICES or argv[1] in STOKES_SLICES):
+            argv[1] in SLICES or argv[1] in NARROW
+            or argv[1] in STOKES_SLICES):
         out = profile(argv[1])
-    elif (argv[:2] == ["history", "stokes"] and len(argv) in (3, 5, 6)
+    elif (argv[:1] == ["history"] and len(argv) in (3, 5, 6)
+          and argv[1] in ["stokes"] + paradiag
           and argv[2] in ("float32", "float64")):
-        n, n_t, budget = [int(a) for a in argv[3:]] + [64, 32, 100][
-            len(argv) - 3:]
-        out = history(argv[2], n, n_t, budget)
+        name = argv[1]
+        base = NARROW.get(name, (name, None))[0]
+        default = ([64, 32, 100] if name == "stokes"
+                   else [*SLICES[base][0], SOLVER_PARAMETERS[
+                       "maximum_iterations"]])
+        n, n_t, budget = [int(a) for a in argv[3:]] + default[len(argv) - 3:]
+        out = history(name, argv[2], n, n_t, budget,
+                      "cpu" if on_cpu else "cuda")
+    elif (argv[:1] == ["determinism"] and len(argv) in (2, 4)
+          and argv[1] in STOKES_SLICES):
+        n, n_t = [int(a) for a in argv[2:]] or STOKES_SLICES[argv[1]][0]
+        out = determinism(argv[1], n, n_t)
     elif (argv[:2] == ["precision", "stokes"] and len(argv) in (2, 4, 5)):
         n, n_t, budget = [int(a) for a in argv[2:]] + [64, 8, 20][
             len(argv) - 2:]

@@ -12,6 +12,11 @@ pairs; both become complex tensors.  Fields of any layout pass through
 (n, [nz,] ny, nx, dim) stacks alike.  ``carry_state`` starts a port problem from
 the JAX package's solution arrays (v, zeta and, on the incompressible
 problems, p and mu).
+
+A ParaDiag state built with ``weight_dtype`` holds full-precision planes
+(the JAX package rounds them at every smoothing); the port's
+``construct_pc(..., prebuilt=to_torch(state))`` stores them narrow once
+(``MGConfig.store``), so the pc computes what the JAX package's does.
 """
 
 import numpy as np

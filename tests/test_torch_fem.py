@@ -6,6 +6,7 @@ summation order at most)."""
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -15,6 +16,20 @@ from control_tpu.fem.space import combine_masks as j_combine
 from control_tpu_torch.fem.space import combine_masks as t_combine
 
 TOL = 1e-13
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_persistent_cache_writes():
+    """The JAX package guards each persistent-cache write by serializing the
+    executable in a forked child (``control_tpu.config``).  Here torch's
+    thread pool is running, and a forked child can deadlock until the
+    guard's 180 s timeout; so this module compiles without writing cache
+    entries (reads still hit), and the setting comes back afterwards."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, float("inf"))
+    yield
+    jax.config.update(key, old)
 
 
 def close(a, b, tol=TOL):
@@ -122,6 +137,41 @@ def test_masked_operator_and_linear_form():
         return mod.inner(f, f) * mod.dx
 
     close(J.assemble(functional(J, sj)), T.assemble(functional(T, st)))
+
+
+@pytest.mark.parametrize("space", ["q1", "q2", "q2_vector", "hex_q1",
+                                   "hex_q2", "hex_q2_vector"])
+def test_to_dense_equals_numpy_assembly(space):
+    """``LocalOp.to_dense`` (a fixed-order sum per entry) equals a dense
+    matrix assembled cell by cell with numpy, for the scalar Q1/Q2 and
+    vector spaces the multigrid hierarchies assemble, with per-cell and
+    batched local matrices; the coarse inverses of the card's pc builds
+    rest on it."""
+    from control_tpu_torch.ops.local_op import LocalOp, _global_indices
+    hexa = space.startswith("hex")
+    degree = 1 if space.endswith("q1") else 2
+    dim = (3 if hexa else 2) if space.endswith("vector") else None
+    mesh = (T.UnitCubeMesh(2, 3, 2, dtype="float64", device="cpu") if hexa
+            else T.UnitSquareMesh(4, 3, quadrilateral=True, dtype="float64",
+                                  device="cpu"))
+    sp = (T.FunctionSpace(mesh, "Lagrange", degree) if dim is None
+          else T.VectorFunctionSpace(mesh, "Lagrange", degree, dim=dim))
+    rng = np.random.default_rng(12)
+    A = rng.standard_normal((2, mesh.n_cells, sp.nloc, sp.nloc))
+    got = LocalOp(torch.as_tensor(A), sp, sp).to_dense()
+    gi = _global_indices(sp)
+    ref = np.zeros((2, sp.n_dofs, sp.n_dofs))
+    for e in range(mesh.n_cells):
+        for i, gr in enumerate(gi[e]):
+            for j, gc in enumerate(gi[e]):
+                ref[:, gr, gc] += A[:, e, i, j]
+    close(ref, got)
+    # the shared (E = 1) local matrix of a constant-coefficient form
+    shared = LocalOp(torch.as_tensor(A[0, :1]), sp, sp).to_dense()
+    ref1 = np.zeros((sp.n_dofs, sp.n_dofs))
+    for e in range(mesh.n_cells):
+        ref1[np.ix_(gi[e], gi[e])] += A[0, 0]
+    close(ref1, shared)
 
 
 @pytest.mark.parametrize("degree", [1, 2])

@@ -34,6 +34,20 @@ SOLVER_PARAMETERS = {"linear_solver": "gmres", "gmres_restart": 10,
 LAMBDA_V_BOUNDS = (0.25, 2.25)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _no_persistent_cache_writes():
+    """The JAX package guards each persistent-cache write by serializing the
+    executable in a forked child (``control_tpu.config``).  Here torch's
+    thread pool is running, and a forked child can deadlock until the
+    guard's 180 s timeout; so this module compiles without writing cache
+    entries (reads still hit), and the setting comes back afterwards."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, float("inf"))
+    yield
+    jax.config.update(key, old)
+
+
 def heat_problem(mod, n, n_t, mode, forward=None):
     mesh = mod.UnitSquareMesh(n, n, quadrilateral=True, dtype="float64",
                               **({"device": "cpu"} if mod is T else {}))

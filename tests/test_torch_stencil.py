@@ -19,6 +19,7 @@ does ``chip_smoke.py`` at the flagship's shapes.
 
 import numpy as np
 import pytest
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -29,6 +30,20 @@ from control_tpu_torch.ops import stencil as ts
 from control_tpu_torch.ops import kernels
 
 TOL = 1e-12
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _no_persistent_cache_writes():
+    """The JAX package guards each persistent-cache write by serializing the
+    executable in a forked child (``control_tpu.config``).  Here torch's
+    thread pool is running, and a forked child can deadlock until the
+    guard's 180 s timeout; so this module compiles without writing cache
+    entries (reads still hit), and the setting comes back afterwards."""
+    key = "jax_persistent_cache_min_compile_time_secs"
+    old = getattr(jax.config, key)
+    jax.config.update(key, float("inf"))
+    yield
+    jax.config.update(key, old)
 
 
 def close(a, b, tol=TOL):

@@ -925,3 +925,31 @@ def test_cheb_vector_kernel_matches_plain_on_card(case, degree, kind):
     with shared and per-batch weights, scalar and (n,) bounds, unbatched
     fields, a grid smaller than a block's 32 nodes and an odd one."""
     vector_kernel_on_card(2, degree, kind, case, [(9, 9), (37, 45)])
+
+
+@pytest.mark.gpu
+def test_coarse_assembly_is_deterministic_on_card():
+    """``LocalOp.to_dense`` sums each entry in a fixed order, so on the card
+    two assemblies of one operator are bit-equal, and two builds of the
+    Stokes 8^2 x 4 preconditioner give bit-equal coarse inverses (the
+    atomic ``index_add_`` it replaced rounded differently from build to
+    build)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from control_tpu_torch.ops.local_op import LocalOp
+    from chip_smoke import dense_inverses
+    mesh = T.UnitSquareMesh(N, N, quadrilateral=True, dtype="float64",
+                            device="cuda")
+    sp = T.VectorFunctionSpace(mesh, "Lagrange", 2)
+    A = torch.as_tensor(seeded((3, mesh.n_cells, sp.nloc, sp.nloc), 15),
+                        device="cuda")
+    op = LocalOp(A, sp, sp)
+    assert torch.equal(op.to_dense(), op.to_dense())
+    states = [stokes_problem(T, device="cuda").incompressible_linear_solve(
+        T.ConstantNullspace(), _return_pieces=True, **solve_kw())[1].state
+        for _ in range(2)]
+    first, second = (dense_inverses(s) for s in states)
+    assert set(first) == set(second) and len(first) >= 3
+    for k in first:
+        assert first[k].is_cuda
+        assert torch.equal(first[k], second[k]), k
