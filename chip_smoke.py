@@ -85,8 +85,26 @@ which raises (and the script exits non-zero) on failure:
    during the timed solve; then the ``scan`` sweeps once; then the
    ParaDiag solve with bfloat16 weight planes, a measurement like
    heat3d's;
-9. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers, and
-   last ``{"ok": true, "device": {...}}``.
+9. backward Euler (``CN=False``, epsilon = 1e-3: the Sigma-rescaled pc,
+   the edge-row ParaDiag sweeps, the Krylov iteration on the eps-scaled
+   unknowns): small float64 solves (flagship 32^2 x 8 ParaDiag and scan,
+   heat3d 8^3 x 8 ParaDiag) on the card against the CPU (equal
+   iterations, histories within 1e-10 of the initial residual); the
+   flagship ParaDiag in float32
+   with ``bench.py``'s BE recipe (``BENCH_CN=0``: GMRES(30), budget 100),
+   once and then timed, which must converge below 1e-6 with K1-K3
+   launched, and the same solve at GMRES(10), ungated, its count printed;
+   the flagship in float64 with the scan sweeps and the default 20 mass
+   steps (``tools/tpu_results/be_parity.json``'s reference recipe), which
+   must converge, and the record's own Krylov iteration (on the
+   untransformed unknowns: 16 iterations on a CPU) on the same pc, which
+   must converge in 15-17 iterations; heat3d
+   (64^3 x 16, float32, ParaDiag defaults, GMRES(30), budget 100), once
+   and then timed, which must converge below 1e-6 with K5 (real,
+   complex) and K6 launched; the kernel rows K2 and K5 real at batch one
+   (the edge rows' V-cycles) and K3 at the interior's 32 frequencies;
+10. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers,
+   and last ``{"ok": true, "device": {...}}``.
 
 A full record goes to ``smoke_out/chip_smoke.json`` (git-ignored), the
 ptxas register and spill report to ``smoke_out/ptxas.txt``.
@@ -119,7 +137,10 @@ TOL = {("K1", "float64"): 1e-12, ("K1", "float32"): 1e-5,
        ("K3n", "float64"): 1e-12, ("K3n", "float32"): 1e-4,
        ("K5rn", "float64"): 1e-12, ("K5rn", "float32"): 1e-4,
        ("K5cn", "float64"): 1e-12, ("K5cn", "float32"): 1e-4,
-       ("K5cnq2", "float64"): 1e-12, ("K5cnq2", "float32"): 1e-4}
+       ("K5cnq2", "float64"): 1e-12, ("K5cnq2", "float32"): 1e-4,
+       ("K2be", "float64"): 1e-12, ("K2be", "float32"): 1e-4,
+       ("K5rbe", "float64"): 1e-12, ("K5rbe", "float32"): 1e-4,
+       ("K3be", "float64"): 1e-12, ("K3be", "float32"): 1e-4}
 # the narrow weight storage of each field dtype in the kernel rows: the
 # JAX benchmarks' bfloat16 under float32 fields, float32 under float64
 NARROW_WEIGHTS = {"float32": "bfloat16", "float64": "float32"}
@@ -130,6 +151,13 @@ HEAT3D = dict(n=64, n_t=16, scan_n=64)
 STOKES = dict(n=64, n_t=32, small_n=8, small_n_t=4, float32_budget=20)
 STOKES3D = dict(n=16, n_t=8, small_n=2, small_n_t=3)
 HEAT3D_Q2 = dict(n=32, n_t=16, small_n=4, small_n_t=4)
+# backward Euler (CN=False): the flagship and heat3d at full width, with
+# the default final-block regularisation epsilon = 1e-3; the f64 scan's
+# record recipe must take 15-17 iterations (tools/tpu_results/
+# be_parity.json, on a CPU: 16 at 256^2 x 64, 17 at 32^2 x 16 and 64^2 x
+# 32)
+BE = dict(n=256, n_t=64, small_n=32, small_n_t=8, scan_its=(15, 17))
+HEAT3D_BE = dict(n=64, n_t=16, small_n=8, small_n_t=8)
 # the plain versions of the large 3-D rows are timed over fewer calls
 PLAIN_REPEATS_3D = 3
 # the H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and
@@ -146,6 +174,9 @@ SOLVER_PARAMETERS = {"linear_solver": "gmres", "gmres_restart": 10,
                      "maximum_iterations": 50, "relative_tolerance": 1.0e-6,
                      "absolute_tolerance": 0.0,
                      "monitor_convergence": False}
+# bench.py's backward-Euler defaults (BENCH_CN=0): GMRES(30), budget 100
+BE_PARAMETERS = dict(SOLVER_PARAMETERS, gmres_restart=30,
+                     maximum_iterations=100)
 STOKES_PARAMETERS = {"linear_solver": "fgmres", "fgmres_restart": 10,
                      "maximum_iterations": 100, "relative_tolerance": 1.0e-6,
                      "absolute_tolerance": 0.0,
@@ -359,7 +390,7 @@ def check_kernels(dev, record):
     results = {"K1": [], "K2": [], "K3": [], "K6": [], "K5r": [],
                "K5c": [], "K4": [], "K5v": [], "K6q2": [], "K5rq2": [],
                "K5cq2": [], "K2n": [], "K3n": [], "K5rn": [], "K5cn": [],
-               "K5cnq2": []}
+               "K5cnq2": [], "K2be": [], "K5rbe": [], "K3be": []}
 
     def field(shape, cplx=False):
         a = rng.standard_normal(shape)
@@ -639,6 +670,13 @@ def check_kernels(dev, record):
         narrow_cheb_check("K5cnq2", (gq2,) * 3, nq2 // 2 + 1, 8, True, 2)
         narrow_cheb_check("K2n", (g, g), n_t - 1, 10, False, 1)
         narrow_cheb_check("K5rn", (g3,) * 3, n3, 10, False, 1)
+        # backward Euler: the edge rows' single-block V-cycles, K2 at
+        # (1, 257^2) and K5 real at (1, 65^3), 10 steps + r; the interior
+        # ParaDiag's frequencies, (n_t - 2) // 2 + 1 = 32 for the flagship,
+        # K3 at 257^2, 3 steps + r
+        real_cheb_check("K2be", (g, g), 1, 10)
+        real_cheb_check("K5rbe", (g3,) * 3, 1, 10)
+        complex_cheb_check("K3be", (g, g), (BE["n_t"] - 2) // 2 + 1, 3)
     record["kernel_checks"] = results
     report(results)
     return results
@@ -674,9 +712,10 @@ KEYS_3D_Q2_BF16 = ("stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
                    "cheb_smooth_3d_complex_q2_bf16")
 
 
-def heat_problem(n, n_t, dtype, device, mode):
-    """The flagship heat-control problem (a Q1 UnitSquareMesh, CN,
-    beta = 1e-4, zero Dirichlet data)."""
+def heat_problem(n, n_t, dtype, device, mode, CN=True):
+    """The flagship heat-control problem (a Q1 UnitSquareMesh, CN or with
+    ``CN=False`` backward Euler, beta = 1e-4, zero Dirichlet data); the
+    ParaDiag sweeps with ``bench.py``'s settings."""
     from control_tpu_torch import (Control, UnitSquareMesh, FunctionSpace,
                                    Function, DirichletBC, SpatialCoordinate,
                                    grad, inner, dx, cos, pi)
@@ -704,19 +743,26 @@ def heat_problem(n, n_t, dtype, device, mode):
     ctl = Control.Instationary(
         space, forw_diff_operator, desired_state=desired_state,
         force_f=force_f, beta=1e-4, n_t=n_t, time_interval=(0.0, 2.0),
-        CN=True, bcs_v=bc_t)
+        CN=CN, bcs_v=bc_t)
     if mode == "paradiag":
         ctl.set_schur_sweep("paradiag", paradiag_cycles=1, smooth=(3, 3))
         ctl.set_mass_solver_steps(10)
     return ctl
 
 
-def heat3d_problem(n, n_t, dtype, device, mode, degree=1):
+def heat_be_problem(n, n_t, dtype, device, mode):
+    """The flagship problem under backward Euler: ``bench.py``'s BE recipe
+    (``BENCH_CN=0``) with ParaDiag, the reference recipe
+    (``be_parity.json``: default 20 mass steps) with the scan."""
+    return heat_problem(n, n_t, dtype, device, mode, CN=False)
+
+
+def heat3d_problem(n, n_t, dtype, device, mode, degree=1, CN=True):
     """``bench_extra.py``'s heat3d problem: hex Q1 (``degree`` 2: Q2)
-    UnitCubeMesh, CN, beta = 1e-4, v_d = sin(pi x) sin(pi y) sin(pi z),
-    f = 0, zero Dirichlet data; ParaDiag with its default settings (2
-    cycles, (8, 8) smoothing, alpha 1e-3, one defect step, 20 mass
-    steps)."""
+    UnitCubeMesh, CN (or backward Euler), beta = 1e-4,
+    v_d = sin(pi x) sin(pi y) sin(pi z), f = 0, zero Dirichlet data;
+    ParaDiag with its default settings (2 cycles, (8, 8) smoothing, alpha
+    1e-3, one defect step, 20 mass steps)."""
     from control_tpu_torch import (Control, UnitCubeMesh, FunctionSpace,
                                    Function, DirichletBC, SpatialCoordinate,
                                    grad, inner, dx, sin, pi)
@@ -740,9 +786,14 @@ def heat3d_problem(n, n_t, dtype, device, mode, degree=1):
 
     ctl = Control.Instationary(space, fdo, desired_state=ds_, force_f=ff,
                                beta=1e-4, n_t=n_t, time_interval=(0.0, 2.0),
-                               CN=True, bcs_v=bc_t)
+                               CN=CN, bcs_v=bc_t)
     ctl.set_schur_sweep(mode)
     return ctl
+
+
+def heat3d_be_problem(n, n_t, dtype, device, mode):
+    """heat3d under backward Euler (``CN=False``)."""
+    return heat3d_problem(n, n_t, dtype, device, mode, CN=False)
 
 
 def heat3d_q2_problem(n, n_t, dtype, device, mode):
@@ -839,11 +890,12 @@ def stokes_solve(ctl, lambdas=LAMBDA_STOKES, **extra):
         print_error=False, **lambdas, **extra)
 
 
-def solve(ctl, bounds, gated=True, budget=None):
+def solve(ctl, bounds, gated=True, budget=None,
+          parameters=SOLVER_PARAMETERS):
     """The slice's solve; ``gated=False`` returns the record at the end of
     the budget instead of raising when it does not converge."""
-    parameters = (SOLVER_PARAMETERS if gated
-                  else dict(SOLVER_PARAMETERS, preconditioner=True))
+    if not gated:
+        parameters = dict(parameters, preconditioner=True)
     if budget is not None:
         parameters = dict(parameters, maximum_iterations=budget)
     return ctl.linear_solve(lambda_v_bounds=bounds,
@@ -851,10 +903,14 @@ def solve(ctl, bounds, gated=True, budget=None):
                             print_error=False)
 
 
-def check_small_f64(dev, record, key, cases):
+def check_small_f64(dev, record, key, cases, hist_tol=1e-8,
+                    to_initial=False):
     """A slice in float64 on the card against the same solve on the CPU
-    (plain versions, which the CPU tests hold to the JAX reference).
-    ``cases``: (label, problem constructor, mode, n, n_t, lambda bounds)."""
+    (plain versions, which the CPU tests hold to the JAX reference): equal
+    iterations, residual histories within ``hist_tol`` relative (entry by
+    entry, or with ``to_initial`` relative to the initial residual), v
+    and zeta within 1e-9.  ``cases``: (label, problem constructor, mode,
+    n, n_t, lambda bounds)."""
     out = {}
     for label, build, mode, n, n_t, bounds in cases:
         runs = {}
@@ -865,17 +921,18 @@ def check_small_f64(dev, record, key, cases):
                                  ctl._zeta.data.cpu())
         (ic, vc, zc), (ig, vg, zg) = runs["cpu"], runs[str(dev)]
         its = ic.iterations
-        hist = float(np.max(np.abs(ic.res_norms[:its + 1]
-                                   - ig.res_norms[:its + 1])
-                            / np.abs(ic.res_norms[:its + 1])))
+        gap = np.abs(ic.res_norms[:its + 1] - ig.res_norms[:its + 1])
+        hist = float(np.max(gap / np.abs(ic.res_norms[:its + 1])))
+        hist_initial = float(np.max(gap) / ic.res_norms[0])
         dv = float((vc - vg).abs().max() / vc.abs().max())
         dz = float((zc - zg).abs().max() / zc.abs().max())
         row = dict(n=n, n_t=n_t, iterations_cpu=its,
-                   iterations_gpu=ig.iterations, hist_rel=hist, v_rel=dv,
-                   zeta_rel=dz)
+                   iterations_gpu=ig.iterations, hist_rel=hist,
+                   hist_rel_to_initial=hist_initial, v_rel=dv, zeta_rel=dz)
         out[f"{mode} {label}"] = row
         print(f"slice f64 {mode} {label}: cuda vs cpu {row}", flush=True)
-        if not (ig.iterations == its and hist < 1e-8 and dv < 1e-9
+        held = hist_initial if to_initial else hist
+        if not (ig.iterations == its and held < hist_tol and dv < 1e-9
                 and dz < 1e-9):
             raise AssertionError(f"cuda slice disagrees with cpu: {row}")
     record[key] = out
@@ -914,8 +971,10 @@ def rounded_planes_solve(dev, build, size, bounds, narrow_ctl):
 
 
 def timed_solve(dev, record, card, key, metric, build, size, bounds,
-                max_its, keys, full_row=None, gated=True, full_build=None):
-    """A slice's ParaDiag solve at full size, float32: solved once, the pc
+                max_its, keys, full_row=None, gated=True, full_build=None,
+                parameters=SOLVER_PARAMETERS):
+    """A slice's ParaDiag solve at full size, float32, with the Krylov
+    ``parameters``: solved once, the pc
     build timed apart, then solved again with CUDA events around it and
     every launch count set to 0 just before; ``keys`` are the kernels of
     the path, each of which must launch (narrow planes come stored narrow
@@ -938,7 +997,8 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
     n, n_t = size
     t0 = time.perf_counter()
     ctl = build(n, n_t, torch.float32, dev, "paradiag")
-    first = solve(ctl, bounds, gated, budget=None if gated else 1)
+    first = solve(ctl, bounds, gated, budget=None if gated else 1,
+                  parameters=parameters)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
 
@@ -949,15 +1009,18 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
         M = assemble(ctl._M_v)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        ctl.construct_pc(False, bounds, mask, Dv_A, M)
+        ctl.construct_pc(False, bounds, mask, Dv_A, M,
+                         epsilon=None if ctl._CN else 1.0e-3)
         torch.cuda.synchronize()
         pc_build_s = time.perf_counter() - t0
 
-    info, row = repeat_solve_row(lambda: solve(ctl, bounds, gated), metric,
-                                 "paradiag", card)
+    info, row = repeat_solve_row(
+        lambda: solve(ctl, bounds, gated, parameters=parameters), metric,
+        "paradiag", card)
     row.update(pc_build_s=pc_build_s, first_solve_s=first_s,
                first_iterations=first.iterations,
-               weight_dtype=getattr(ctl, "_mg_weight_dtype", None))
+               weight_dtype=getattr(ctl, "_mg_weight_dtype", None),
+               CN=ctl._CN, gmres_restart=parameters["gmres_restart"])
     if full_row is not None:
         row["full_precision"] = {
             k: full_row[k] for k in ("iterations", "relative_residual",
@@ -1276,6 +1339,114 @@ def scan_once(dev, record, key, build, size, bounds):
         raise AssertionError(f"{key} scan solve off target: {row}")
 
 
+def be_restart10(dev, record, card, size, bounds):
+    """A measurement, not a check: the flagship BE ParaDiag solve in
+    float32 at GMRES(10) with a budget of 100 (``bench.py`` runs BE at
+    GMRES(30) for the TPU's float32 noise; whether the card needs the
+    longer restart is ROADMAP's question).  Prints its iterations and
+    final residual; only a residual that is not finite fails."""
+    n, n_t = size
+    ctl = heat_be_problem(n, n_t, torch.float32, dev, "paradiag")
+    parameters = dict(BE_PARAMETERS, gmres_restart=10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    info = solve(ctl, bounds, gated=False, parameters=parameters)
+    torch.cuda.synchronize()
+    row = {"metric": "heat_control_be_256x256_nt64_gmres10", "CN": False,
+           "schur": "paradiag", "dtype": "float32", "gmres_restart": 10,
+           "budget": parameters["maximum_iterations"],
+           "iterations": info.iterations,
+           "relative_residual": info.rnorm / info.rnorm0,
+           "converged": info.converged,
+           "first_solve_s": time.perf_counter() - t0, "card": card}
+    print(json.dumps(row), flush=True)
+    record["flagship_be_gmres10"] = row
+    if not np.isfinite(row["relative_residual"]):
+        raise AssertionError(f"BE GMRES(10) residual not finite: {row}")
+    return row
+
+
+def be_parity_recipe(ctl, bounds):
+    """``tools/tpu_results/be_parity.json``'s recipe on the problem ``ctl``
+    (solved once, so its pc state is cached): the same pc and system, but
+    the Krylov iteration on the untransformed unknowns, as the JAX
+    package's BE solve ran it when the record was made.  Its linear solve
+    has since run GMRES on the eps-scaled final state block
+    (``unknown_scale``): the same preconditioned spectrum, another
+    residual norm, so another count (the port at 32^2 x 16 and 64^2 x 32
+    in float64 on a CPU: 13 with the transform, 17 and 17 without, the
+    record's counts and residuals)."""
+    from control_tpu_torch import MultiBlockSystem, DirichletBCNullspace
+    from control_tpu_torch.config import full_precision
+    from control_tpu_torch.fem.assemble import assemble
+    from control_tpu_torch.fem.space import combine_masks
+    from control_tpu_torch.solvers.block import finalize_solve_info
+
+    space, n_t, bcs = ctl._space_v, ctl._n_t, ctl._bcs_v[1]
+    with full_precision():
+        mask = combine_masks(space, bcs)
+        Dv_A, M = ctl._D_stack(ctl._v.data), assemble(ctl._M_v)
+        b_0, b_1 = ctl._build_rhs(None, None, ctl._initial_state(), Dv_A, M,
+                                  mask, False, ctl._bcs_v)
+        (state,) = ctl._pc_state_cache.values()
+        pc = ctl.construct_pc(False, bounds, mask, Dv_A, M, epsilon=1.0e-3,
+                              prebuilt=state)
+        ns = tuple(DirichletBCNullspace(bcs) for _ in range(n_t))
+        system = MultiBlockSystem(space, space, *ctl._blocks(Dv_A, M=M)[:4],
+                                  n_blocks_00=n_t, n_blocks_11=n_t,
+                                  nullspace_0=ns, nullspace_1=ns, CN=False)
+        fn = system.solve_fn(solver_parameters=SOLVER_PARAMETERS, pc_fn=pc)
+        _, _, info = fn(torch.zeros_like(b_0), torch.zeros_like(b_1), b_0,
+                        b_1)
+    return finalize_solve_info(info, SOLVER_PARAMETERS)
+
+
+def be_scan_f64(dev, record, card, size, bounds, its):
+    """The flagship under backward Euler in float64 with the ``scan``
+    sweeps (one real hierarchy per time row, 64 sequential V-cycles a
+    sweep), the default 20-step mass Chebyshev, GMRES(10), rtol 1e-6: the
+    reference recipe of ``tools/tpu_results/be_parity.json``.  A first
+    ``linear_solve`` (the pc build inside it, timed), then a repeat solve
+    with CUDA events around it and the launch counts set to 0 just before,
+    which must converge below 1e-6 with K1 and K2 launched; then
+    ``be_parity_recipe`` on the same pc, which must converge below 1e-6 in
+    ``its`` = (least, most) iterations (the record: 16 at rel. res.
+    5.27e-7)."""
+    n, n_t = size
+    ctl = heat_be_problem(n, n_t, torch.float64, dev, "scan")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first = solve(ctl, bounds)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    info, row = repeat_solve_row(lambda: solve(ctl, bounds),
+                                 "heat_control_be_256x256_nt64_scan_f64_cuda",
+                                 "scan", card, dtype="float64")
+    row.update(CN=False, first_solve_s=first_s,
+               first_iterations=first.iterations)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parity = be_parity_recipe(ctl, bounds)
+    torch.cuda.synchronize()
+    row["be_parity_recipe"] = {
+        "iterations": parity.iterations,
+        "relative_residual": parity.rnorm / parity.rnorm0,
+        "converged": parity.converged,
+        "solve_s": time.perf_counter() - t0,
+        "record": {"iterations": 16, "relative_residual": 5.268712166e-7}}
+    fields = {"v": (ctl._v.data, ctl._space_v, n_t),
+              "zeta": (ctl._zeta.data, ctl._space_v, n_t)}
+    row = judge_solve(record, "flagship_be_scan_f64", row, info,
+                      SOLVER_PARAMETERS["maximum_iterations"],
+                      ("stencil_apply", "cheb_smooth_real"), fields)
+    got = row["be_parity_recipe"]
+    if not (parity.converged and got["relative_residual"] < 1e-6
+            and its[0] <= parity.iterations <= its[1]):
+        raise AssertionError("BE scan f64 off the be_parity.json record: "
+                             f"{got}")
+    return row
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1402,6 +1573,37 @@ def main():
               (HEAT3D_Q2["n"], HEAT3D_Q2["n_t"]), LAMBDA_Q2)
 
     lap("heat3d_q2")
+    # backward Euler: small float64 solves on the card against the CPU
+    # (histories within 1e-10 of the initial residual: the last entries
+    # lie six orders below it, where the two devices' rounding, amplified
+    # by 1/eps and 1/alpha, reaches 1e-10 of the entry itself),
+    # the flagship ParaDiag (bench.py's BE recipe, GMRES(30), timed) and
+    # its GMRES(10) count, the flagship scan in float64 (the reference
+    # recipe), heat3d ParaDiag
+    check_small_f64(dev, record, "small_f64_be", (
+        (f"BE {BE['small_n']}^2x{BE['small_n_t']}", heat_be_problem,
+         "paradiag", BE["small_n"], BE["small_n_t"], LAMBDA_2D),
+        (f"BE {BE['small_n']}^2x{BE['small_n_t']}", heat_be_problem,
+         "scan", BE["small_n"], BE["small_n_t"], LAMBDA_2D),
+        (f"BE {HEAT3D_BE['small_n']}^3x{HEAT3D_BE['small_n_t']}",
+         heat3d_be_problem, "paradiag", HEAT3D_BE["small_n"],
+         HEAT3D_BE["small_n_t"], LAMBDA_3D)), hist_tol=1e-10,
+        to_initial=True)
+    be = timed_solve(dev, record, card, "flagship_be",
+                     "heat_control_be_256x256_nt64_kkt_solve_cuda",
+                     heat_be_problem, (BE["n"], BE["n_t"]), LAMBDA_2D,
+                     BE_PARAMETERS["maximum_iterations"], KEYS_2D,
+                     parameters=BE_PARAMETERS)
+    be_restart10(dev, record, card, (BE["n"], BE["n_t"]), LAMBDA_2D)
+    be_scan_f64(dev, record, card, (BE["n"], BE["n_t"]), LAMBDA_2D,
+                BE["scan_its"])
+    lap("be_2d")
+    h3be = timed_solve(dev, record, card, "heat3d_be",
+                       "heat3d_be_64cubed_nt16_kkt_solve_cuda",
+                       heat3d_be_problem, (HEAT3D_BE["n"], HEAT3D_BE["n_t"]),
+                       LAMBDA_3D, BE_PARAMETERS["maximum_iterations"],
+                       KEYS_3D, parameters=BE_PARAMETERS)
+    lap("be_3d")
     print(f"phase seconds {json.dumps(marks)}", flush=True)
 
     def row(kname, source, replaces, key, launches, checks_rows,
@@ -1427,6 +1629,7 @@ def main():
                      q2n["launches"])
     m2l = mg_n["multigrid_2d"]["launches"]
     m3l = mg_n["multigrid_3d"]["launches"]
+    bel, h3bel = be["launches"], h3be["launches"]
     kernels_line = {"kernels": [
         row("K1 stencil_apply", apply_src, "control_tpu/ops/stencil.py:206",
             "stencil_apply", fl, checks["K1"]),
@@ -1475,6 +1678,15 @@ def main():
         row("K5 cheb_smooth 3-D (real, bf16 weights)", narrow_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real_bf16",
             m3l, checks["K5rn"]),
+        row("K2 cheb_smooth (real, backward-Euler edge rows, batch 1)",
+            cheb_src, "control_tpu/ops/stencil.py:589", "cheb_smooth_real",
+            bel, checks["K2be"]),
+        row("K3 cheb_smooth (complex, backward-Euler interior)", cheb_src,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex", bel,
+            checks["K3be"]),
+        row("K5 cheb_smooth 3-D (real, backward-Euler edge rows, batch 1)",
+            cheb_src, "control_tpu/ops/stencil.py:1090",
+            "cheb_smooth_3d_real", h3bel, checks["K5rbe"]),
     ]}
     record["kernels"] = kernels_line["kernels"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

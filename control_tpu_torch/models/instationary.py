@@ -1,6 +1,7 @@
 """Instationary (space-time all-at-once) optimal control problems, the
-Crank-Nicolson linear paths: heat control (``linear_solve``) and Stokes
-control on a velocity / pressure pair (``incompressible_linear_solve``).
+linear paths: heat control (``linear_solve``, Crank-Nicolson or, with
+``CN=False``, backward Euler) and Crank-Nicolson Stokes control on a
+velocity / pressure pair (``incompressible_linear_solve``).
 
 The all-at-once vector over n_t time steps is a stacked tensor
 (n_t, *grid); the block-bidiagonal space-time KKT operator becomes a
@@ -18,9 +19,20 @@ whose forward/backward block substitutions run either exactly, one time
 block after another with one multigrid V-cycle each ("scan", the default),
 or all at once by ParaDiag: an alpha-circulant approximation diagonalised
 by a time-axis DFT, with one batched complex V-cycle over the frequencies
-(kernel K3; K5 in 3-D) and a defect correction (kernel K1; K6 in 3-D).
-Everything is dimension-generic: the same code runs Q1 quadrilaterals and
-hexahedra, and vector spaces with the sequential sweeps.
+(kernel K3; K5 in 3-D) and a defect correction (kernel K1; K6 in 3-D), or
+as a truncated block-Jacobi iteration with all time blocks in one batched
+V-cycle ("jacobi").  Everything is dimension-generic: the same code runs
+Q1 quadrilaterals and hexahedra, and vector spaces with the sequential
+sweeps.
+
+Backward Euler (reference control/control.py:2191-2438) has n_t blocks, a
+(1,1) block whose final diagonal block the pc regularises by eps (default
+1e-3, ``set_epsilon``), and Schur factors with row-dependent shifts
+[0, c, ..., c, sqrt(eps) c]: the edge rows peel off into exact
+single-block V-cycles around an interior ParaDiag (``_BEParaDiagSweep``).
+The pc runs Sigma-conjugated (Sigma = diag(1, ..., 1, eps)) and the Krylov
+iteration on the eps-scaled final state block, so that every intermediate
+stays O(1) in float32.
 
 The incompressible solve nests this preconditioner: five fixed GMRES
 iterations on the space-time velocity KKT system, preconditioned as above
@@ -96,7 +108,8 @@ class _SweepSolver:
     per-time-block multigrid hierarchies built once (batched when the
     blocks differ).  The sub-diagonal action is a node stencil (K1; K6 in
     3-D), the V-cycle smoothing real (K2; K5 in 3-D; K4 / K5v on vector
-    spaces)."""
+    spaces).  ``solve_jacobi`` runs the same substitution as a truncated
+    block-Jacobi iteration with all time blocks in one batched V-cycle."""
 
     def __init__(self, space, mask, diag_A, sub_A, cycles=1, state=None):
         self.space, self.mask, self.cycles = space, mask, cycles
@@ -112,8 +125,9 @@ class _SweepSolver:
             self.sub = node_stencil(sub_A, space)
         self.state = {"params": self.params, "sub": self.sub}
 
-    def solve(self, b, reverse=False):
-        n = b.shape[0]
+    def _oriented(self, b, reverse):
+        """b, the hierarchies and the sub-diagonal stencils in the order of
+        the sweep (a backward sweep runs the rows in reverse)."""
         params, sub = self.params, self.sub
         if reverse:
             b = torch.flip(b, (0,))
@@ -121,6 +135,15 @@ class _SweepSolver:
                 params = flip_params(params)
             if sub.shape[0] > 1:
                 sub = torch.flip(sub, (0,))
+        return b, params, sub
+
+    def solve(self, b, reverse=False, last_sub_scale=1.0):
+        """``last_sub_scale`` scales the coupling into the final row (the
+        Sigma-conjugated backward-Euler factor); forward sweeps only."""
+        if last_sub_scale != 1.0 and reverse:
+            raise ValueError("last_sub_scale supports forward sweeps only")
+        n = b.shape[0]
+        b, params, sub = self._oriented(b, reverse)
         deg, nd = self.space.degree, self.space.ndim
         u_prev = None
         out = []
@@ -130,12 +153,43 @@ class _SweepSolver:
                 # row i couples to u_{i-1} through S_i (shared, or the
                 # (i-1)-th entry of the per-row stack)
                 S_i = sub[0] if sub.shape[0] == 1 else sub[i - 1]
-                rhs = rhs - apply_stencil(S_i, u_prev, deg, nd=nd)
+                s = apply_stencil(S_i, u_prev, deg, nd=nd)
+                if i == n - 1 and last_sub_scale != 1.0:
+                    s = last_sub_scale * s
+                rhs = rhs - s
             rhs = zero_rows(self.mask, rhs)
             p_i = params if self.shared else index_params(params, i)
             u_prev = self.config.apply(p_i, rhs, cycles=self.cycles)
             out.append(u_prev)
         u = torch.stack(out)
+        return torch.flip(u, (0,)) if reverse else u
+
+    def solve_jacobi(self, b, reverse=False, steps=12, last_sub_scale=1.0):
+        """Truncated block-Jacobi substitution u^{m+1} = F^{-1}(b - S u^m),
+        exact after n steps (S shifts by one block): every time block
+        solves its V-cycle at once, as one batched smoothing call per level
+        (K2 over n rows; K5 real in 3-D)."""
+        if last_sub_scale != 1.0 and reverse:
+            raise ValueError("last_sub_scale supports forward sweeps only")
+        n = b.shape[0]
+        steps = min(steps, n)
+        b, params, sub = self._oriented(b, reverse)
+        if sub.shape[0] > 1:
+            sub = torch.cat([torch.zeros_like(sub[:1]), sub])
+        deg, nd = self.space.degree, self.space.ndim
+        mk = self.mask[None] if self.mask is not None else None
+
+        def coupling(u):
+            shifted = torch.cat([torch.zeros_like(u[:1]), u[:-1]])
+            s = apply_stencil(sub, shifted, deg, nd=nd)
+            if last_sub_scale != 1.0:
+                s[n - 1] *= last_sub_scale
+            return s
+
+        u = self.config.apply(params, zero_rows(mk, b), cycles=self.cycles)
+        for _ in range(steps - 1):
+            u = self.config.apply(params, zero_rows(mk, b - coupling(u)),
+                                  cycles=self.cycles)
         return torch.flip(u, (0,)) if reverse else u
 
 
@@ -161,9 +215,9 @@ class _ParaDiagSweep:
     def __init__(self, space, mask, diag_A, sub_A, n, alpha=None,
                  cycles=2, state=None, defect_steps=1, smooth=None,
                  weight_dtype=None):
-        if diag_A.shape[0] != 1 or n < 2:
+        if diag_A.shape[0] != 1:
             raise ValueError("ParaDiag requires a Toeplitz (time-"
-                             "independent) sweep factor over n >= 2 rows")
+                             "independent) sweep factor")
         self.space, self.mask = space, mask
         self.cycles, self.n = cycles, n
         self.defect_steps = defect_steps
@@ -175,6 +229,14 @@ class _ParaDiagSweep:
         self.config = MGConfig(space, mask, coarse_max_dofs=600,
                                pre=pre, post=post,
                                weight_dtype=weight_dtype)
+        self.trivial = n == 1
+        if self.trivial:
+            # one row (the interior of a 3-row backward-Euler sweep): one
+            # real hierarchy, no coupling
+            self.params = (self.config.build(diag_A[0]) if state is None
+                           else self.config.store(state["params"]))
+            self.state = {"params": self.params}
+            return
         cdtype = complex_dtype(rdtype)
         dev = diag_A.device
         n_f = n // 2 + 1
@@ -239,6 +301,9 @@ class _ParaDiagSweep:
 
     def solve(self, b, reverse=False):
         mk = self.mask[None] if self.mask is not None else None
+        if self.trivial:
+            return self.config.apply(self.params, zero_rows(mk, b),
+                                     cycles=self.cycles)
         if reverse:
             b = torch.flip(b, (0,))
         b = zero_rows(mk, b)
@@ -247,6 +312,75 @@ class _ParaDiagSweep:
             r = b - self._factor_apply(u)
             u = u + self._circulant_solve(r)
         u = zero_rows(mk, u)
+        return torch.flip(u, (0,)) if reverse else u
+
+
+class _BEParaDiagSweep:
+    """Time-parallel backward-Euler Schur substitution (reference
+    control/control.py:2191-2438).
+
+    The BE sweep factor is block lower-bidiagonal with row-dependent
+    diagonal shifts [0, c, ..., c, sqrt(eps) c] and a constant
+    sub-diagonal S = -M: Toeplitz except in its first and last rows, which
+    peel off into exact single-block solves around an interior ParaDiag:
+
+        u_0       = F_0^{-1} b_0
+        u_{1:n-1} = ParaDiag over the interior Toeplitz block with
+                    rhs (b_1 - S u_0, b_2, ..., b_{n-2})
+        u_{n-1}   = F_{n-1}^{-1} (b_{n-1} - S u_{n-2})
+
+    The edge solves are V-cycles of a default ``MGConfig`` hierarchy on
+    one block (K2; K5 real in 3-D), the interior a batched complex V-cycle
+    over its frequencies (K3; K5 complex), the coupling a node stencil
+    (K1; K6).  ``reverse=True`` flips the row order (the backward
+    factor's edge shifts swap ends), so one instance serves the
+    (L^T + shifts) sweep too."""
+
+    def __init__(self, space, mask, diag_A, sub_A, n, alpha=None,
+                 cycles=2, state=None, defect_steps=1, smooth=None,
+                 weight_dtype=None):
+        if diag_A.shape[0] != n or n < 3:
+            raise ValueError("edge-row ParaDiag needs the full "
+                             "row-dependent factor stack with n >= 3 rows")
+        self.space, self.mask, self.n = space, mask, n
+        self.cycles = cycles
+        self.edge_config = MGConfig(space, mask)
+        if state is None:
+            e_first = self.edge_config.build(diag_A[0])
+            e_last = self.edge_config.build(diag_A[n - 1])
+            wS = node_stencil(sub_A, space)
+            mid_state = None
+        else:
+            e_first, e_last = state["e_first"], state["e_last"]
+            wS = state["wS"]
+            mid_state = state["mid"]
+        self.e_first, self.e_last, self._wS = e_first, e_last, wS
+        self.mid = _ParaDiagSweep(space, mask, diag_A[1:2], sub_A, n - 2,
+                                  alpha=alpha, cycles=cycles,
+                                  defect_steps=defect_steps, smooth=smooth,
+                                  weight_dtype=weight_dtype,
+                                  state=mid_state)
+        self.state = {"e_first": e_first, "e_last": e_last, "wS": wS,
+                      "mid": self.mid.state}
+
+    def solve(self, b, reverse=False, last_sub_scale=1.0):
+        if last_sub_scale != 1.0 and reverse:
+            raise ValueError("last_sub_scale supports forward sweeps only")
+        mk = self.mask[None] if self.mask is not None else None
+        if reverse:
+            b = torch.flip(b, (0,))
+        b = zero_rows(mk, b)
+        first = self.e_last if reverse else self.e_first
+        last = self.e_first if reverse else self.e_last
+        d, nd = self.space.degree, self.space.ndim
+        u0 = self.edge_config.apply(first, b[0], cycles=self.cycles)
+        bm = b[1:-1].clone()
+        bm[0] -= apply_stencil(self._wS[0], u0, d, nd=nd)
+        um = self.mid.solve(zero_rows(mk, bm))
+        s_ul = apply_stencil(self._wS[0], um[-1], d, nd=nd)
+        bl = zero_rows(self.mask, b[-1] - last_sub_scale * s_ul)
+        ul = self.edge_config.apply(last, bl, cycles=self.cycles)
+        u = zero_rows(mk, torch.cat([u0[None], um, ul[None]]))
         return torch.flip(u, (0,)) if reverse else u
 
 
@@ -327,6 +461,127 @@ class Instationary:
                 else:
                     full[i] = tuple(bcs_i)
         self._bcs_v = full
+        self._bc_stack_cache = None
+
+    # -------------------------------------------------------------- setters
+    def set_forward_form(self, forward_form):
+        self._forward_form = forward_form
+        self._dep_cache = None
+
+    def set_desired_state(self, desired_state):
+        self._desired_state = desired_state
+        self._data_cache = {}
+
+    def set_force_function(self, force_function):
+        self._force_function = force_function
+        self._data_cache = {}
+
+    def set_beta(self, beta):
+        self._beta = beta
+
+    def set_initial_condition(self, initial_condition):
+        self._initial_condition = initial_condition
+        self._v.sub(0).assign(initial_condition(TestFunction(self._space_v)))
+        for bc in self._bcs_v[0]:
+            bc.apply(self._v.sub(0))
+
+    def set_time_interval(self, time_interval):
+        self._time_interval = time_interval
+        self._rebuild_bcs()
+
+    def set_CN(self, *, CN=True):
+        """Switch between Crank-Nicolson and backward Euler (the pressure
+        stacks of the incompressible problems change length)."""
+        if CN != self._CN:
+            self._CN = CN
+            if self._space_p is not None:
+                self.set_space_p(self._space_p)
+
+    def set_n_t(self, n_t):
+        """A new number of time steps: the bcs, v (with the initial
+        condition) and zeta are rebuilt at the new length."""
+        self._n_t = n_t
+        self._rebuild_bcs()
+        v = MixedFunction(self._space_v, n_t, name="v")
+        if self._initial_condition is not None:
+            v.sub(0).assign(self._initial_condition(
+                TestFunction(self._space_v)))
+        for i in range(n_t):
+            for bc in self._bcs_v[i]:
+                bc.apply(v.sub(i))
+        self._v = v
+        self._zeta = MixedFunction(self._space_v, n_t, name="zeta")
+        if self._space_p is not None:
+            self.set_space_p(self._space_p)
+
+    def set_space_v(self, space_v, *, v=None, zeta=None, bcs_v_new=False,
+                    bcs_v=None):
+        """Replace the state space (reference control.py:1599-1671):
+        rebuild the mass form and the per-time-step bcs, and carry the
+        current state and adjoint over by interpolation onto the new space
+        (e.g. after a mesh refinement)."""
+        old_v, old_zeta = self._v, self._zeta
+        old_space = old_v.space
+        self._space_v = space_v
+        v_test, v_trial = TestFunction(space_v), TrialFunction(space_v)
+        self._M_v = inner(v_trial, v_test) * dx
+        if bcs_v_new:
+            self._f_bcs_v = bcs_v
+        self._rebuild_bcs()
+        n_t = self._n_t
+        if v is None:
+            v = MixedFunction(space_v, n_t, name="v")
+            if self._initial_condition is not None:
+                v.sub(0).assign(self._initial_condition(v_test))
+            for i in range(1, n_t):
+                v.sub(i).interpolate(
+                    Function(old_space, data=old_v.data[i]))
+        elif v.space != space_v or v.n != n_t:
+            raise ValueError("Unexpected space")
+        for i in range(n_t):
+            for bc in self._bcs_v[i]:
+                bc.apply(v.sub(i))
+        if zeta is None:
+            zeta = MixedFunction(space_v, n_t, name="zeta")
+            for i in range(1, n_t):
+                zeta.sub(i).interpolate(
+                    Function(old_space, data=old_zeta.data[i]))
+        elif zeta.space != space_v or zeta.n != n_t:
+            raise ValueError("Unexpected space")
+        self._v, self._zeta = v, zeta
+        self._zero_zeta_bcs()
+        self._data_cache = {}
+
+    def set_bcs_v(self, bcs_v, space_v=None):
+        if space_v is not None:
+            self.set_space_v(space_v, bcs_v_new=True, bcs_v=bcs_v)
+            return
+        self._f_bcs_v = bcs_v
+        self._rebuild_bcs()
+        for i in range(self._n_t):
+            for bc in self._bcs_v[i]:
+                bc.apply(self._v.sub(i))
+        self._zero_zeta_bcs()
+
+    def set_Gauss_Newton(self, Gauss_Newton=True):
+        """Only stores the flag: the Gauss-Newton linearisation itself is
+        not ported and raises where it would be used."""
+        self._Gauss_Newton = Gauss_Newton
+
+    def set_epsilon(self, epsilon):
+        """Backward-Euler final-time-block regularisation (the reference
+        hardcodes epsilon = 1e-3, control/control.py:2836: the BE (1,1)
+        block has a zero final diagonal block, so the pc substitutes
+        eps * tau * M for it).  None restores the default."""
+        if self._CN and epsilon is not None:
+            raise ValueError("epsilon applies to backward Euler only")
+        if epsilon is None:
+            self.__dict__.pop("_be_epsilon", None)
+        else:
+            eps = float(epsilon)
+            if not 0.0 < eps <= 1.0:
+                raise ValueError("epsilon must lie in (0, 1]")
+            self._be_epsilon = eps
 
     def _bc_stack(self):
         """Stacked (mask, value) tensors of the per-time-step Dirichlet
@@ -366,6 +621,9 @@ class Instationary:
 
     def set_zeta(self, zeta_new):
         self._zeta.assign(zeta_new)
+        self._zero_zeta_bcs()
+
+    def _zero_zeta_bcs(self):
         bcs_zeta = homogenize(self._bcs_v[1])
         if bcs_zeta:
             mask = combine_masks(self._space_v, bcs_zeta)
@@ -492,13 +750,12 @@ class Instationary:
 
     # ------------------------------------------------------- block building
     def _blocks(self, Dv_A, M=None, space=None):
-        """Block dicts of the Crank-Nicolson all-at-once KKT operator
-        (reference control/control.py:2889-2978), on the velocity space or,
+        """Block dicts of the all-at-once KKT operator (reference
+        control/control.py:2889-2978): n_t x n_t blocks under backward
+        Euler, n_t - 1 under Crank-Nicolson; on the velocity space or,
         with the stacked operator and the mass operator of another
         ``space``, on that one (the pressure space of the Schur
         approximation)."""
-        if not self._CN:
-            raise NotImplementedError("backward Euler is not ported yet")
         n_t, tau, beta = self._n_t, self._tau, self._beta
         sp = self._space_v if space is None else space
         if M is None:
@@ -515,6 +772,23 @@ class Instationary:
             return LocalOp(A, sp, sp)
 
         block_00, block_01, block_10, block_11 = {}, {}, {}, {}
+        if not self._CN:
+            sh = Dv_A.shape[0] == 1
+            d01 = op(tau * DT(0) + M_A) if sh else None
+            d10 = op(tau * D(0) + M_A) if sh else None
+            mM = op(-M_A)
+            tbM = op(-(tau / beta) * M_A)
+            tM = op(tau * M_A)
+            for i in range(n_t):
+                if i < n_t - 1:
+                    block_00[(i, i)] = tM
+                    block_01[(i, i + 1)] = mM
+                block_01[(i, i)] = d01 or op(tau * DT(i) + M_A)
+                block_10[(i, i)] = d10 or op(tau * D(i) + M_A)
+                if i >= 1:
+                    block_10[(i, i - 1)] = mM
+                    block_11[(i, i)] = tbM
+            return block_00, block_01, block_10, block_11, M
         n = n_t - 1
         hM = op(0.5 * tau * M_A)
         hbM = op(-0.5 * (tau / beta) * M_A)
@@ -540,57 +814,89 @@ class Instationary:
         return block_00, block_01, block_10, block_11, M
 
     # ------------------------------------------------------- preconditioner
+    def _sweep_fn(self, mode):
+        """How a sweep solver runs: ``sweep(solver, b, reverse,
+        last_sub_scale=1.0)``, the exact substitution or, in the "jacobi"
+        mode, the truncated block-Jacobi one."""
+        if mode == "jacobi":
+            k = getattr(self, "_schur_jacobi_steps", None) or 12
+            return lambda solver, b, rev, ls=1.0: solver.solve_jacobi(
+                b, reverse=rev, steps=k, last_sub_scale=ls)
+        return lambda solver, b, rev, ls=1.0: solver.solve(
+            b, reverse=rev, last_sub_scale=ls)
+
     def _make_sweeps(self, space, mask, F_diag, F_sub, G_diag, G_sup, n,
-                     prebuilt=None):
+                     toeplitz_factors=None, prebuilt=None, edge_rows=False):
         """Build the forward/backward Schur substitution solvers for the
-        selected mode.  ParaDiag applies when both factors are Toeplitz (a
-        time-independent operator: one diagonal factor for all rows);
-        otherwise the exact sequential sweep runs, whatever the mode."""
+        selected mode and return ``(fwd, bwd, sweep)``, ``sweep`` as in
+        ``_sweep_fn``.  ParaDiag applies when both factors are Toeplitz (a
+        time-independent operator: one diagonal factor for all rows), or
+        through ``toeplitz_factors=(F_toep, G_toep)``, a caller's Toeplitz
+        approximation of row-dependent factors.  ``edge_rows=True`` says
+        the n-row factor stacks are Toeplitz but for their first and last
+        rows (the backward-Euler shifts): those peel off into exact
+        single-block solves around an interior ParaDiag
+        (``_BEParaDiagSweep``).  Otherwise the exact sequential sweep runs,
+        whatever the mode (or the block-Jacobi one, when asked for)."""
         mode = getattr(self, "_schur_mode", "scan")
-        toeplitz = F_diag.shape[0] == 1 and G_diag.shape[0] == 1
-        if mode in ("auto", "paradiag") and n > 1 and toeplitz:
-            if space.dim is not None:
-                raise NotImplementedError(
-                    "ParaDiag sweeps on vector spaces (complex vector "
-                    "smoothing) are not ported yet; use the scan sweeps")
-            kw = dict(alpha=getattr(self, "_paradiag_alpha", None),
-                      defect_steps=getattr(self, "_paradiag_dc", 1),
-                      cycles=getattr(self, "_paradiag_cycles", 2),
-                      smooth=getattr(self, "_mg_smooth", None),
-                      weight_dtype=getattr(self, "_mg_weight_dtype", None))
-            fwd = _ParaDiagSweep(space, mask, F_diag, F_sub, n,
-                                 state=None if prebuilt is None
-                                 else prebuilt["fwd"], **kw)
-            bwd = _ParaDiagSweep(space, mask, G_diag, G_sup, n,
-                                 state=None if prebuilt is None
-                                 else prebuilt["bwd"], **kw)
-            return fwd, bwd
-        fwd = _SweepSolver(space, mask, F_diag, F_sub,
-                           state=None if prebuilt is None
-                           else prebuilt["fwd"])
-        bwd = _SweepSolver(space, mask, G_diag, G_sup,
-                           state=None if prebuilt is None
-                           else prebuilt["bwd"])
-        return fwd, bwd
+        parallel = mode in ("auto", "paradiag") and n > 1
+        edge = parallel and edge_rows and n >= 3 and F_diag.shape[0] == n
+        if F_diag.shape[0] == 1 and G_diag.shape[0] == 1:
+            toeplitz_factors = (F_diag, G_diag)
+        circulant = parallel and toeplitz_factors is not None
+        if (edge or circulant) and space.dim is not None:
+            raise NotImplementedError(
+                "ParaDiag sweeps on vector spaces (complex vector "
+                "smoothing) are not ported yet; use the scan sweeps")
+        kw = dict(alpha=getattr(self, "_paradiag_alpha", None),
+                  defect_steps=getattr(self, "_paradiag_dc", 1),
+                  cycles=getattr(self, "_paradiag_cycles", 2),
+                  smooth=getattr(self, "_mg_smooth", None),
+                  weight_dtype=getattr(self, "_mg_weight_dtype", None))
+
+        def state(key):
+            return None if prebuilt is None else prebuilt[key]
+
+        if edge:
+            fwd = _BEParaDiagSweep(space, mask, F_diag, F_sub, n,
+                                   state=state("fwd"), **kw)
+            bwd = _BEParaDiagSweep(space, mask, G_diag, G_sup, n,
+                                   state=state("bwd"), **kw)
+            return fwd, bwd, self._sweep_fn("scan")
+        if circulant:
+            F_t, G_t = toeplitz_factors
+            fwd = _ParaDiagSweep(space, mask, F_t, F_sub, n,
+                                 state=state("fwd"), **kw)
+            bwd = _ParaDiagSweep(space, mask, G_t, G_sup, n,
+                                 state=state("bwd"), **kw)
+
+            def toeplitz_sweep(solver, b, rev, ls=1.0):
+                if ls != 1.0:
+                    raise ValueError("last_sub_scale needs row-resolved "
+                                     "sweep factors")
+                return solver.solve(b, reverse=rev)
+
+            return fwd, bwd, toeplitz_sweep
+        fwd = _SweepSolver(space, mask, F_diag, F_sub, state=state("fwd"))
+        bwd = _SweepSolver(space, mask, G_diag, G_sup, state=state("bwd"))
+        return fwd, bwd, self._sweep_fn(
+            "scan" if mode in ("auto", "paradiag") else mode)
 
     def set_schur_sweep(self, mode, steps=None, paradiag_alpha=None,
                         paradiag_defect_steps=None, paradiag_cycles=None,
                         smooth=None, weight_dtype=None):
-        """Select the Schur substitution strategy ("scan" | "paradiag" |
-        "auto"), optionally fixing the ParaDiag circulant parameter alpha,
-        the number of ParaDiag defect-correction steps (default 1), the
-        V-cycle count of the per-frequency solves (default 2), the
-        (pre, post) Chebyshev smoothing step counts of the ParaDiag
-        frequency V-cycles (default (8, 8)), or the storage dtype of the
-        ParaDiag smoothers' weight planes (e.g. "bfloat16": the narrow
-        K3/K5 kernels on the card).
-        ``steps`` belongs to the jacobi sweep, which is not ported."""
-        if mode == "jacobi" or steps is not None:
-            raise NotImplementedError(
-                "the jacobi Schur sweep is not ported yet")
-        if mode not in ("scan", "paradiag", "auto"):
+        """Select the Schur substitution strategy ("scan" | "jacobi" |
+        "paradiag" | "auto"), optionally fixing the Jacobi step count
+        (default 12), the ParaDiag circulant parameter alpha, the number
+        of ParaDiag defect-correction steps (default 1), the V-cycle count
+        of the per-frequency solves (default 2), the (pre, post) Chebyshev
+        smoothing step counts of the ParaDiag frequency V-cycles (default
+        (8, 8)), or the storage dtype of the ParaDiag smoothers' weight
+        planes (e.g. "bfloat16": the narrow K3/K5 kernels on the card)."""
+        if mode not in ("scan", "jacobi", "paradiag", "auto"):
             raise ValueError(f"unknown Schur sweep {mode!r}")
         self._schur_mode = mode
+        self._schur_jacobi_steps = steps
         self._paradiag_alpha = paradiag_alpha
         if paradiag_defect_steps is not None:
             self._paradiag_dc = paradiag_defect_steps
@@ -607,25 +913,27 @@ class Instationary:
         self._mass_cheb_steps = None if steps is None else int(steps)
 
     def construct_pc(self, Multigrid, lambda_v_bounds, mask, Dv_A, M,
-                     prebuilt=None):
-        """The reference's CN block preconditioner
+                     epsilon=None, prebuilt=None):
+        """The reference's CN / BE block preconditioner
         (control/control.py:1943-2440), with the (1,1) mass solves batched
-        over all time blocks.
+        over all time blocks; ``epsilon`` is backward Euler's final-block
+        regularisation.
 
         The returned callable carries a ``.state`` dict of every tensor it
         derived (multigrid hierarchies, stencils, coarse inverses).  Passing
         that dict back via ``prebuilt=`` rebuilds an identical pc without
         re-deriving the state."""
-        if not self._CN:
-            raise NotImplementedError("backward Euler is not ported yet")
-        n_t, tau, beta = self._n_t, self._tau, self._beta
-        sp = self._space_v
         M_A = M.A
         solver_0 = mass_solver(M, mask, Multigrid, lambda_v_bounds,
                                state=None if prebuilt is None
                                else prebuilt["solver_0"],
                                steps=getattr(self, "_mass_cheb_steps",
                                              None))
+        if not self._CN:
+            return self._construct_pc_be(solver_0, mask, Dv_A, M_A, epsilon,
+                                         prebuilt)
+        n_t, tau, beta = self._n_t, self._tau, self._beta
+        sp = self._space_v
         sh = Dv_A.shape[0] == 1
         n = n_t - 1
         c = 0.5 * tau / beta ** 0.5
@@ -648,8 +956,8 @@ class Instationary:
                       + M_A + c * M_A)
             G_sup = (0.5 * tau * Dv_A[1:n].transpose(-1, -2)
                      - M_A + c * M_A)
-        fwd, bwd = self._make_sweeps(sp, mask, F_diag, F_sub, G_diag, G_sup,
-                                     n, prebuilt=prebuilt)
+        fwd, bwd, sweep = self._make_sweeps(sp, mask, F_diag, F_sub, G_diag,
+                                            G_sup, n, prebuilt=prebuilt)
         ap_diag = _fast_stack_applier(sp, d10_diag)
         ap_sub = _fast_stack_applier(sp, d10_sub)
         ap_M = _fast_stack_applier(sp, M_A[None])
@@ -669,13 +977,81 @@ class Instationary:
             b = zero_rows(mk, b)
             b = apply_T_2_inv(b)
             # forward substitution (L + cM)
-            u_1 = fwd.solve(b, reverse=False)
+            u_1 = sweep(fwd, b, False)
             u_1 = apply_T_2(u_1)
             # multiply 0.5 tau M
             b = 0.5 * tau * ap_M(u_1)
             b = zero_rows(mk, b)
             # backward substitution (L^T + cM)
-            u_1 = bwd.solve(b, reverse=True)
+            u_1 = sweep(bwd, b, True)
+            return u_0, u_1
+
+        pc_linear.state = {"solver_0": solver_0.state,
+                           "fwd": fwd.state, "bwd": bwd.state}
+        return pc_linear
+
+    def _construct_pc_be(self, solver_0, mask, Dv_A, M_A, epsilon,
+                         prebuilt):
+        """The backward-Euler block preconditioner (reference
+        control/control.py:2191-2438) over n_t blocks: the mass solve, then
+        the Schur factors with diagonal shifts [0, c, ..., c, sqrt(eps) c]
+        and sub-diagonal -M, swept forward and backward (edge-row ParaDiag
+        for a time-independent operator in the ParaDiag modes, the exact
+        or block-Jacobi sweep otherwise)."""
+        n, tau, beta = self._n_t, self._tau, self._beta
+        sp = self._space_v
+        sh = Dv_A.shape[0] == 1
+        c = tau / beta ** 0.5
+        eps = float(epsilon)
+        s_f = torch.tensor([0.0] + [c] * (n - 2) + [(eps ** 0.5) * c],
+                           dtype=Dv_A.dtype, device=Dv_A.device)
+        shift_M = s_f[:, None, None, None] * M_A
+        if sh:
+            d10_diag = (tau * Dv_A[0] + M_A)[None]
+            G_diag = (tau * Dv_A[0].transpose(-1, -2) + M_A)[None] + shift_M
+        else:
+            d10_diag = tau * Dv_A + M_A
+            G_diag = tau * Dv_A.transpose(-1, -2) + M_A + shift_M
+        F_diag = d10_diag + shift_M
+        mM = (-M_A)[None]
+        # a uniform-shift Toeplitz approximation of these factors doubles
+        # the outer iterations (the zero first-row shift matters), so a
+        # time-independent operator peels the edge rows off instead
+        fwd, bwd, sweep = self._make_sweeps(sp, mask, F_diag, mM, G_diag, mM,
+                                            n, prebuilt=prebuilt,
+                                            edge_rows=sh and n >= 3)
+        ap_diag = _fast_stack_applier(sp, d10_diag)
+        ap_sub = _fast_stack_applier(sp, mM)
+        ap_M = _fast_stack_applier(sp, M_A[None])
+        mk = mask[None] if mask is not None else None
+
+        def pc_linear(b_0, b_1):
+            # The reference amplifies the final (1,1) block by 1/eps and
+            # rescales by eps after the forward sweep
+            # (control/control.py:2205-2206,2312,2348,2358).  Conjugating
+            # the Schur chain by Sigma = diag(1, ..., 1, eps) over the time
+            # blocks is the same algebra with every intermediate O(1):
+            #   b^  = (Sigma B Sigma^-1) u~0 - Sigma b_1,
+            #   u^1 = (Sigma F Sigma^-1)^-1 b^   [= Sigma u_1],
+            #   b2  = tau M u^1                  [= the eps-scaled rhs],
+            # where u~0 is the unamplified mass solve and the conjugated
+            # operators scale the sub-diagonal coupling into the final row
+            # by eps (last_sub_scale); 1/eps comes back only on the
+            # returned final (1,1) block.
+            u_0 = (1.0 / tau) * solver_0(b_0)
+            b = ap_diag(u_0)
+            sub = ap_sub(u_0[:-1])
+            sub[n - 2] *= eps
+            b[1:] += sub
+            b_1 = b_1.clone()
+            b_1[n - 1] *= eps
+            b = zero_rows(mk, b - b_1)
+            u_1 = sweep(fwd, b, False, eps)
+            # multiply tau M; the final block is already eps-scaled
+            b = zero_rows(mk, tau * ap_M(u_1))
+            u_1 = sweep(bwd, b, True)
+            u_0 = u_0.clone()
+            u_0[n - 1] *= 1.0 / eps
             return u_0, u_1
 
         pc_linear.state = {"solver_0": solver_0.state,
@@ -684,11 +1060,11 @@ class Instationary:
 
     # ------------------------------------------------------------ rhs build
     def _build_rhs(self, v_d, f, v_0, Dv_A, M, mask, inhom, bcs_v_help):
-        """All-at-once Crank-Nicolson rhs incl. initial-condition and
-        inhomogeneous-bc lifts (reference control/control.py:2980-3243).
-        Returns stacked (b_0, b_1).  The T1/T2 symmetrisation is applied
-        unconditionally, also to caller-supplied rhs (reference
-        control/control.py:3242-3243)."""
+        """All-at-once rhs incl. initial-condition and inhomogeneous-bc
+        lifts (reference control/control.py:2980-3243).  Returns stacked
+        (b_0, b_1).  Under Crank-Nicolson the T1/T2 symmetrisation is
+        applied unconditionally, also to caller-supplied rhs (reference
+        control/control.py:3242-3243); backward Euler has none."""
         n_t, tau = self._n_t, self._tau
         sp = self._space_v
         sh = Dv_A.shape[0] == 1
@@ -700,6 +1076,8 @@ class Instationary:
             return bc_lift_function(sp, bcs_v_help[i]).data
 
         mk = mask[None] if mask is not None else None
+        if not self._CN:
+            return self._build_rhs_be(v_d, f, v_0, M, mk, inhom, D_op, lift)
         n = n_t - 1
         if v_d is not None:
             b_0 = apply_T_1(v_d.data)
@@ -735,6 +1113,38 @@ class Instationary:
             b_1 = apply_T_2(b_1)
         return b_0, b_1
 
+    def _build_rhs_be(self, v_d, f, v_0, M, mk, inhom, D_op, lift):
+        """The backward-Euler rhs over n_t blocks: tau v_d with a zero
+        final row, and tau f with the initial state's row
+        tau D(v_0) v_0 + M v_0; inhomogeneous bcs lifted row by row (row 0
+        through the initial-state operator, reference
+        control/control.py:3011-3026)."""
+        n_t, tau = self._n_t, self._tau
+        if v_d is not None:
+            b_0 = v_d.data
+        else:
+            b_0 = tau * self.construct_v_d().data
+            b_0[n_t - 1] = 0.0
+            if inhom:
+                for i in range(n_t - 1):
+                    b_0[i] += -tau * M.apply(lift(i))
+            b_0 = zero_rows(mk, b_0)
+        if f is not None:
+            b_1 = f.data
+        else:
+            b_1 = tau * self.construct_f().data
+            D0 = self.construct_D_v(v_0, self._time_interval[0])
+            b_1[0] = tau * D0.apply(v_0.data) + M.apply(v_0.data)
+            if inhom:
+                li0 = lift(0)
+                b_1[0] += -(tau * D0.apply(li0) + M.apply(li0))
+                for i in range(1, n_t):
+                    li = lift(i)
+                    b_1[i] += -(tau * D_op(i).apply(li) + M.apply(li))
+                    b_1[i] += M.apply(lift(i - 1))
+            b_1 = zero_rows(mk, b_1)
+        return b_0, b_1
+
     # ------------------------------------------------------------ linear solve
     def _pc_key(self, Multigrid, lambda_v_bounds, mask, Dv_A):
         def tok(t):
@@ -752,22 +1162,27 @@ class Instationary:
                 getattr(self, "_mg_smooth", None),
                 getattr(self, "_mg_weight_dtype", None),
                 getattr(self, "_mass_cheb_steps", None),
+                getattr(self, "_schur_jacobi_steps", None),
+                getattr(self, "_be_epsilon", 1.0e-3),
                 id(self._space_v), tok(Dv_A))
 
     def linear_solve(self, *, P=None, solver_parameters=None,
                      Multigrid=False, lambda_v_bounds=None, v_d=None,
                      f=None, print_error=True, create_output=False,
                      plots=False):
-        """All-at-once Crank-Nicolson KKT solve (reference
-        control/control.py:2820-3375).
+        """All-at-once KKT solve, Crank-Nicolson or (``CN=False``) backward
+        Euler (reference control/control.py:2820-3375).
 
         The pc state (hierarchies, stencils, coarse inverses) is built once
         per linearisation and reused by repeat solves.  Runs under
         ``config.full_precision()``: no TF32 in the float32 products and
         convolutions on the card.  ``create_output=True`` writes
-        ``v.npz``/``zeta.npz`` in the working directory."""
-        if not self._CN:
-            raise NotImplementedError("backward Euler is not ported yet")
+        ``v.npz``/``zeta.npz`` in the working directory.  A user
+        preconditioner ``P`` under backward Euler is not ported (raises
+        ``NotImplementedError``)."""
+        if not self._CN and P is not None:
+            raise NotImplementedError(
+                "user preconditioners for backward Euler are not ported yet")
         if plots:
             raise NotImplementedError("plots are not ported yet")
         if solver_parameters is not None and (
@@ -798,8 +1213,9 @@ class Instationary:
         mask = combine_masks(space_v, bcs_v) if bcs_v else None
         nullspace = (DirichletBCNullspace(bcs_v) if bcs_v
                      else NoneNullspace())
-        n_blocks = n_t - 1
+        n_blocks = n_t - 1 if self._CN else n_t
         full_ns = tuple(nullspace for _ in range(n_blocks))
+        epsilon = None if self._CN else getattr(self, "_be_epsilon", 1.0e-3)
 
         v_0 = self._initial_state()
         Dv_A = self._D_stack(self._v.data)
@@ -824,10 +1240,12 @@ class Instationary:
                 if len(self._pc_state_cache) > 4:
                     self._pc_state_cache.clear()
                 pc_state = self.construct_pc(Multigrid, lambda_v_bounds,
-                                             mask, Dv_A, M).state
+                                             mask, Dv_A, M,
+                                             epsilon=epsilon).state
                 self._pc_state_cache[tok] = pc_state
             pc_fn = self.construct_pc(Multigrid, lambda_v_bounds, mask,
-                                      Dv_A, M, prebuilt=pc_state)
+                                      Dv_A, M, epsilon=epsilon,
+                                      prebuilt=pc_state)
         else:
             pc_fn = P
         b00, b01, b10, b11, _ = self._blocks(Dv_A, M=M)
@@ -835,14 +1253,28 @@ class Instationary:
             space_v, space_v,
             block_00=b00, block_01=b01, block_10=b10, block_11=b11,
             n_blocks_00=n_blocks, n_blocks_11=n_blocks,
-            nullspace_0=full_ns, nullspace_1=full_ns, CN=True)
+            nullspace_0=full_ns, nullspace_1=full_ns, CN=self._CN)
+        # backward Euler: the Krylov iteration runs on the similarity-
+        # transformed system whose final state block is scaled by eps.
+        # The pc amplifies that block by 1/eps, which in float32 would put
+        # every other component of the Krylov vectors below the rounding
+        # floor; the preconditioned spectrum is unchanged.
+        uscale = None
+        if not self._CN:
+            s0 = torch.ones(n_blocks, dtype=b_0.dtype, device=b_0.device)
+            s0[n_blocks - 1] = 1.0 / epsilon
+            uscale = (s0, None)
         solve = system.solve_fn(solver_parameters=dict(solver_parameters),
-                                pc_fn=pc_fn)
+                                pc_fn=pc_fn, unknown_scale=uscale)
         u0, u1, info_d = solve(torch.zeros_like(b_0), torch.zeros_like(b_1),
                                b_0, b_1)
         info = finalize_solve_info(info_d, solver_parameters)
         self.last_solve_info = info
 
+        if not self._CN:
+            self.set_v(MixedFunction(space_v, n_t, data=u0, name="v"))
+            self.set_zeta(MixedFunction(space_v, n_t, data=u1, name="zeta"))
+            return info
         v_new = MixedFunction(space_v, n_t, name="v_new")
         zeta_new = MixedFunction(space_v, n_t, name="zeta_new")
         if internal_rhs:

@@ -307,6 +307,16 @@ def _build_groups(blocks, n_rows, n_cols, trial_space, test_space):
         present = [o for o in row_ops if o is not None]
         if not present:
             continue
+        # rows without a block at either end of the diagonal (backward
+        # Euler's (0,0) and (1,1) blocks) are left out of the group: a
+        # diagonal of one shared block then stays one shared product
+        # instead of a per-cell batched one with zero matrices
+        while row_ops[0] is None:
+            row_ops.pop(0)
+            r0 += 1
+        while row_ops[-1] is None:
+            row_ops.pop()
+            r1 -= 1
         if all(o is present[0] for o in row_ops):
             A = present[0].A[None]              # broadcast over rows
         else:
@@ -494,8 +504,18 @@ class MultiBlockSystem:
             raise ValueError(f"unknown linear_solver {method!r}")
         return method, flexible
 
-    def solve_fn(self, solver_parameters=None, pc_fn=None):
-        """A function (u0, u1, b0, b1) -> (u0, u1, info_dict)."""
+    def solve_fn(self, solver_parameters=None, pc_fn=None,
+                 unknown_scale=None):
+        """A function (u0, u1, b0, b1) -> (u0, u1, info_dict).
+
+        ``unknown_scale``: optional ``(s0, s1)``, a per-block diagonal
+        similarity transform of the Krylov iteration (each an
+        (n_blocks,)-shaped tensor or None).  The solve runs on
+        A' = A Sigma, M' = Sigma^{-1} M with Sigma = blockdiag(s) and
+        x = Sigma x': the preconditioned spectrum is unchanged, but the
+        Krylov vectors carry Sigma^{-1}-scaled components (backward
+        Euler's eps-amplified final state block stays representable in
+        float32)."""
         sp = dict(solver_parameters or {})
         method, flexible = self._resolve_solver_parameters(sp)
         if method == "gmres" and flexible:
@@ -524,16 +544,34 @@ class MultiBlockSystem:
         def operator(x):
             return self.mult(*x)
 
+        if unknown_scale is not None:
+            s0v, s1v = unknown_scale
+            base_op, base_pc = operator, wrapped_pc
+
+            def operator(x):
+                return base_op((_scale(s0v, x[0]), _scale(s1v, x[1])))
+
+            def wrapped_pc(b):
+                u0, u1 = base_pc(b)
+                return (_scale(s0v, u0, inverse=True),
+                        _scale(s1v, u1, inverse=True))
+
         def fn(u0, u1, b0, b1):
             u0 = _apply_per_block(self.ns0, "correct_soln", u0)
             u1 = _apply_per_block(self.ns1, "correct_soln", u1)
             b0 = _apply_per_block(self.ns0, "correct_rhs", b0)
             b1 = _apply_per_block(self.ns1, "correct_rhs", b1)
+            if unknown_scale is not None:
+                u0 = _scale(s0v, u0, inverse=True)
+                u1 = _scale(s1v, u1, inverse=True)
             x, info = krylov.solve_krylov(
                 method, operator, (b0, b1), x0=(u0, u1), M=wrapped_pc,
                 restart=restart, rtol=rtol, atol=atol, maxiter=maxiter,
                 dtol=dtol)
             u0, u1 = x
+            if unknown_scale is not None:
+                u0 = _scale(s0v, u0)
+                u1 = _scale(s1v, u1)
             u0 = _apply_per_block(self.ns0, "correct_soln", u0)
             u1 = _apply_per_block(self.ns1, "correct_soln", u1)
             return u0, u1, info
@@ -553,6 +591,16 @@ class MultiBlockSystem:
         self._write_back(u_0, u0, self.n0)
         self._write_back(u_1, u1, self.n1)
         return info
+
+
+def _scale(s, x, inverse=False):
+    """x with block i scaled by s[i] (divided with ``inverse``); s None
+    leaves x as it is."""
+    if s is None:
+        return x
+    sv = torch.as_tensor(s, dtype=x.dtype, device=x.device).reshape(
+        (-1,) + (1,) * (x.dim() - 1))
+    return x / sv if inverse else x * sv
 
 
 def finalize_solve_info(info_dict, solver_parameters):

@@ -16,7 +16,11 @@ in turns within one call on one card):
         do the same for the 2-D flagship and the Q2 heat slice, and the
         targets ``flagship_bf16``, ``heat3d_bf16`` and ``heat3d_q2_bf16``
         for the same solves with the ParaDiag weight planes stored in
-        bfloat16 (``weight_dtype``);
+        bfloat16 (``weight_dtype``); ``be`` and ``heat3d_be`` for the
+        flagship and heat3d under backward Euler (``CN=False``, ParaDiag,
+        GMRES(30), budget 100) and ``be_scan`` for the flagship under
+        backward Euler with the scan sweeps in float64 (the reference
+        recipe);
     python3 control_tpu_torch/tools/profile_slice.py profile stokes
         the Stokes slice (64^2 x 32, f64, scan): the repeat solve timed
         unprofiled, then a trace of a window of it, the first two outer
@@ -46,10 +50,11 @@ in turns within one call on one card):
 
     python3 control_tpu_torch/tools/profile_slice.py history <slice> \
             float32|float64 [n n_t [iterations]] [cpu]
-        the same for a ParaDiag slice (flagship, heat3d, heat3d_q2 or
-        their _bf16 targets; default their chip_smoke.py size and a budget
-        of 50); ``cpu`` runs it on the CPU (the plain versions, no card
-        needed), to hold the card's history against it.
+        the same for a heat slice (flagship, heat3d, heat3d_q2 or their
+        _bf16 targets, or be, be_scan, heat3d_be; default their
+        chip_smoke.py size and budget); ``cpu`` runs it on the CPU (the
+        plain versions, no card needed), to hold the card's history
+        against it.
 
     python3 control_tpu_torch/tools/profile_slice.py determinism \
             stokes|stokes3d [n n_t]
@@ -87,11 +92,26 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke  # noqa: E402  (the checkout's own problem definitions)
 
 SOLVER_PARAMETERS = chip_smoke.SOLVER_PARAMETERS
-SLICES = {"flagship": ((256, 64), (0.25, 2.25), "heat_problem"),
-          "heat3d": ((64, 16), (0.125, 3.375), "heat3d_problem"),
-          "heat3d_q2": ((32, 16), (0.1, 2.3), "heat3d_q2_problem")}
-# the ParaDiag slices with their weight planes stored narrow
-NARROW = {f"{k}_bf16": (k, "bfloat16") for k in SLICES}
+BE_PARAMETERS = chip_smoke.BE_PARAMETERS
+# name: (size, lambda bounds, problem, sweep, Krylov parameters, dtype of
+# ``profile``); the backward-Euler slices with ``bench.py``'s BE recipe
+# (GMRES(30), budget 100), the scan in float64 as its reference recipe
+SLICES = {
+    "flagship": ((256, 64), (0.25, 2.25), "heat_problem", "paradiag",
+                 SOLVER_PARAMETERS, "float32"),
+    "heat3d": ((64, 16), (0.125, 3.375), "heat3d_problem", "paradiag",
+               SOLVER_PARAMETERS, "float32"),
+    "heat3d_q2": ((32, 16), (0.1, 2.3), "heat3d_q2_problem", "paradiag",
+                  SOLVER_PARAMETERS, "float32"),
+    "be": ((256, 64), (0.25, 2.25), "heat_be_problem", "paradiag",
+           BE_PARAMETERS, "float32"),
+    "be_scan": ((256, 64), (0.25, 2.25), "heat_be_problem", "scan",
+                SOLVER_PARAMETERS, "float64"),
+    "heat3d_be": ((64, 16), (0.125, 3.375), "heat3d_be_problem", "paradiag",
+                  BE_PARAMETERS, "float32")}
+# the Crank-Nicolson ParaDiag slices with their weight planes stored narrow
+NARROW = {f"{k}_bf16": (k, "bfloat16")
+          for k in ("flagship", "heat3d", "heat3d_q2")}
 STOKES_SLICES = {
     "stokes": ((chip_smoke.STOKES["n"], chip_smoke.STOKES["n_t"]),
                "stokes_problem", chip_smoke.LAMBDA_STOKES),
@@ -120,9 +140,9 @@ def problem(name):
                 print_error=False, **lambdas)
         return ctl, solve, lambda: solve(window)
     name, weight_dtype = NARROW.get(name, (name, None))
-    (n, n_t), bounds, maker = SLICES[name]
-    ctl = getattr(chip_smoke, maker)(n, n_t, torch.float32, dev, "paradiag")
-    parameters = SOLVER_PARAMETERS
+    (n, n_t), bounds, maker, mode, parameters, dtype = SLICES[name]
+    ctl = getattr(chip_smoke, maker)(n, n_t, getattr(torch, dtype), dev,
+                                     mode)
     if weight_dtype is not None:
         ctl.set_schur_sweep("paradiag", weight_dtype=weight_dtype)
         # the 3-D slices stall with bfloat16 weights at this width
@@ -414,12 +434,12 @@ def history(name, dtype, n, n_t, budget, device="cuda"):
                 print_error=False, **chip_smoke.LAMBDA_STOKES)
     else:
         base, weight_dtype = NARROW.get(name, (name, None))
-        _, bounds, maker = SLICES[base]
+        _, bounds, maker, mode, parameters, _ = SLICES[base]
         ctl = getattr(chip_smoke, maker)(n, n_t, getattr(torch, dtype), dev,
-                                         "paradiag")
+                                         mode)
         if weight_dtype is not None:
             ctl.set_schur_sweep("paradiag", weight_dtype=weight_dtype)
-        parameters = dict(SOLVER_PARAMETERS, preconditioner=True,
+        parameters = dict(parameters, preconditioner=True,
                           maximum_iterations=budget)
 
         def solve():
@@ -602,7 +622,7 @@ def main(argv):
         name = argv[1]
         base = NARROW.get(name, (name, None))[0]
         default = ([64, 32, 100] if name == "stokes"
-                   else [*SLICES[base][0], SOLVER_PARAMETERS[
+                   else [*SLICES[base][0], SLICES[base][4][
                        "maximum_iterations"]])
         n, n_t, budget = [int(a) for a in argv[3:]] + default[len(argv) - 3:]
         out = history(name, argv[2], n, n_t, budget,

@@ -4,14 +4,16 @@ Everything arrives as numpy arrays (or anything ``numpy.asarray`` takes)
 and leaves as tensors on the device and in the dtype of a target space:
 its local matrices, and the preconditioner state of
 ``Instationary.construct_pc(...).state`` (``solver_0`` / ``fwd`` / ``bwd``
-with ``Ws``, ``dinvs``, ``lams``, ``Ainv``, ``wF``, ``wS`` ...), which the
-port's ``construct_pc(..., prebuilt=state)`` accepts.  Complex leaves may
+with ``Ws``, ``dinvs``, ``lams``, ``Ainv``, ``wF``, ``wS`` ...; under
+backward Euler the edge-row sweeps' ``e_first`` / ``e_last`` hierarchies,
+``wS`` and the interior ParaDiag's ``mid`` state), which the port's
+``construct_pc(..., prebuilt=state)`` accepts.  Complex leaves may
 arrive as complex arrays or as the reference's ``{"__complex__": (re, im)}``
 pairs; both become complex tensors.  Fields of any layout pass through
 ``to_torch`` unchanged in shape: scalar (n, [nz,] ny, nx) and vector
 (n, [nz,] ny, nx, dim) stacks alike.  ``carry_state`` starts a port problem from
-the JAX package's solution arrays (v, zeta and, on the incompressible
-problems, p and mu).
+the JAX package's solution arrays (v, zeta of n_t blocks, Crank-Nicolson
+or backward Euler, and, on the incompressible problems, p and mu).
 
 A ParaDiag state built with ``weight_dtype`` holds full-precision planes
 (the JAX package rounds them at every smoothing); the port's

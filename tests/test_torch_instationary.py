@@ -201,13 +201,17 @@ def test_time_dependent_operator_falls_back_to_scan():
 
 
 def test_unported_paths_raise():
+    """What the port leaves out of the heat solve raises: an unknown sweep,
+    a user preconditioner under backward Euler (the jacobi sweep and
+    backward Euler themselves are ported, ``tests/test_torch_be.py``)."""
     ct = heat_problem(T, 4, 4, "scan")
-    with pytest.raises(NotImplementedError):
-        ct.set_schur_sweep("jacobi")
+    with pytest.raises(ValueError):
+        ct.set_schur_sweep("gauss_seidel")
     be = heat_problem(T, 4, 4, "scan")
-    be._CN = False
+    be.set_CN(CN=False)
     with pytest.raises(NotImplementedError):
-        be.linear_solve(lambda_v_bounds=LAMBDA_V_BOUNDS, print_error=False)
+        be.linear_solve(P=lambda b0, b1: (b0, b1),
+                        lambda_v_bounds=LAMBDA_V_BOUNDS, print_error=False)
 
 
 def test_create_output_writes_npz(tmp_path, monkeypatch):
