@@ -103,7 +103,23 @@ which raises (and the script exits non-zero) on failure:
    and then timed, which must converge below 1e-6 with K5 (real,
    complex) and K6 launched; the kernel rows K2 and K5 real at batch one
    (the edge rows' V-cycles) and K3 at the interior's 32 frequencies;
-10. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers,
+10. stationary control (``Control.Stationary(...).linear_solve``): K1,
+   K2 and K3 at degree 3 (K = 49) and 4 (K = 81) against their plain
+   versions (K1 and the 20-step K2 on one 769^2 field, the Q3 256^2
+   finest level, and on 513^2 at degree 4; K3 32 frequencies on 385^2
+   and 257^2, 3 steps; the narrow K3 at degree 3), float64 and float32;
+   small float64 solves (``poisson`` 32^2, the Q3 problem 8^2, P2
+   triangles 16^2) on the card against the CPU; ``bench_extra.py``'s
+   ``poisson`` (Q1 256^2, float32, GMRES(10), rtol 1e-6), once and then
+   timed, which must converge within the JAX package's 4 iterations + 3
+   with K1 and K2 launched; the same in float64; both at 2048^2, float64
+   within its 256^2 count + 2 (multigrid counts stay mesh-independent)
+   and float32 within the budget (its count grows with the mesh, in the
+   JAX package too); ``tests/test_degree3.py``'s manufactured Q3 problem at 256^2 (769^2
+   nodes, float64, FGMRES(10), rtol 1e-10), which must converge within
+   500 iterations with K1 and K2 at degree 3 launched, and prints the L2
+   errors of v and zeta against the exact pair;
+11. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers,
    and last ``{"ok": true, "device": {...}}``.
 
 A full record goes to ``smoke_out/chip_smoke.json`` (git-ignored), the
@@ -141,6 +157,13 @@ TOL = {("K1", "float64"): 1e-12, ("K1", "float32"): 1e-5,
        ("K2be", "float64"): 1e-12, ("K2be", "float32"): 1e-4,
        ("K5rbe", "float64"): 1e-12, ("K5rbe", "float32"): 1e-4,
        ("K3be", "float64"): 1e-12, ("K3be", "float32"): 1e-4}
+# degree 3 and 4 (2-D) and the narrow K3 at degree 3: the same tolerances
+TOL.update({(f"{k}{q}", dt): tol for k, tol32 in (("K1", 1e-5),
+                                                   ("K2", 1e-4),
+                                                   ("K3", 1e-4))
+            for q in ("q3", "q4")
+            for dt, tol in (("float64", 1e-12), ("float32", tol32))})
+TOL.update({("K3nq3", "float64"): 1e-12, ("K3nq3", "float32"): 1e-4})
 # the narrow weight storage of each field dtype in the kernel rows: the
 # JAX benchmarks' bfloat16 under float32 fields, float32 under float64
 NARROW_WEIGHTS = {"float32": "bfloat16", "float64": "float32"}
@@ -903,38 +926,52 @@ def solve(ctl, bounds, gated=True, budget=None,
                             print_error=False)
 
 
+def held_on_card(dev, label, run, hist_tol=1e-8, to_initial=False,
+                 **extra):
+    """One float64 solve, ``run(device) -> (info, problem)``, on the card
+    against the same solve on the CPU (plain versions, which the CPU tests
+    hold to the JAX reference): equal iterations, residual histories
+    within ``hist_tol`` relative (entry by entry, or with ``to_initial``
+    relative to the initial residual, which only a history ending more
+    than six orders below its initial residual may take: its last entries
+    are rounding), v and zeta within 1e-9.  Returns the printed row
+    (``extra`` first)."""
+    runs = {}
+    for device in ("cpu", dev):
+        info, ctl = run(device)
+        runs[str(device)] = (info, ctl._v.data.cpu(), ctl._zeta.data.cpu())
+    (ic, vc, zc), (ig, vg, zg) = runs["cpu"], runs[str(dev)]
+    its = ic.iterations
+    hc = ic.res_norms[:its + 1]
+    gap = np.abs(hc - ig.res_norms[:its + 1])
+    row = dict(extra, iterations_cpu=its, iterations_gpu=ig.iterations,
+               hist_rel=float(np.max(gap / np.abs(hc))),
+               hist_rel_to_initial=float(np.max(gap) / hc[0]),
+               last_rel=float(hc[-1] / hc[0]),
+               v_rel=float((vc - vg).abs().max() / vc.abs().max()),
+               zeta_rel=float((zc - zg).abs().max() / zc.abs().max()))
+    print(f"slice f64 {label}: cuda vs cpu {row}", flush=True)
+    held = row["hist_rel_to_initial"] if to_initial else row["hist_rel"]
+    if not (ig.iterations == its and held < hist_tol
+            and row["v_rel"] < 1e-9 and row["zeta_rel"] < 1e-9
+            and (not to_initial or row["last_rel"] < 1e-6)):
+        raise AssertionError(f"cuda slice disagrees with cpu: {row}")
+    return row
+
+
 def check_small_f64(dev, record, key, cases, hist_tol=1e-8,
                     to_initial=False):
     """A slice in float64 on the card against the same solve on the CPU
-    (plain versions, which the CPU tests hold to the JAX reference): equal
-    iterations, residual histories within ``hist_tol`` relative (entry by
-    entry, or with ``to_initial`` relative to the initial residual), v
-    and zeta within 1e-9.  ``cases``: (label, problem constructor, mode,
-    n, n_t, lambda bounds)."""
+    (``held_on_card``).  ``cases``: (label, problem constructor, mode, n,
+    n_t, lambda bounds)."""
     out = {}
     for label, build, mode, n, n_t, bounds in cases:
-        runs = {}
-        for device in ("cpu", dev):
+        def run(device):
             ctl = build(n, n_t, torch.float64, device, mode)
-            info = solve(ctl, bounds)
-            runs[str(device)] = (info, ctl._v.data.cpu(),
-                                 ctl._zeta.data.cpu())
-        (ic, vc, zc), (ig, vg, zg) = runs["cpu"], runs[str(dev)]
-        its = ic.iterations
-        gap = np.abs(ic.res_norms[:its + 1] - ig.res_norms[:its + 1])
-        hist = float(np.max(gap / np.abs(ic.res_norms[:its + 1])))
-        hist_initial = float(np.max(gap) / ic.res_norms[0])
-        dv = float((vc - vg).abs().max() / vc.abs().max())
-        dz = float((zc - zg).abs().max() / zc.abs().max())
-        row = dict(n=n, n_t=n_t, iterations_cpu=its,
-                   iterations_gpu=ig.iterations, hist_rel=hist,
-                   hist_rel_to_initial=hist_initial, v_rel=dv, zeta_rel=dz)
-        out[f"{mode} {label}"] = row
-        print(f"slice f64 {mode} {label}: cuda vs cpu {row}", flush=True)
-        held = hist_initial if to_initial else hist
-        if not (ig.iterations == its and held < hist_tol and dv < 1e-9
-                and dz < 1e-9):
-            raise AssertionError(f"cuda slice disagrees with cpu: {row}")
+            return solve(ctl, bounds), ctl
+
+        out[f"{mode} {label}"] = held_on_card(
+            dev, f"{mode} {label}", run, hist_tol, to_initial, n=n, n_t=n_t)
     record[key] = out
 
 
@@ -1447,6 +1484,402 @@ def be_scan_f64(dev, record, card, size, bounds, its):
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 10: stationary control, K1-K3 at degree 3 and 4
+# ---------------------------------------------------------------------------
+
+# bench_extra.py's poisson at 256^2 (its configuration) and at 2048^2 (2049^2
+# nodes: 151 MB of float32 weights per finest-level operator, beyond the 50
+# MB L2), each in float32 and float64; tests/test_degree3.py's manufactured
+# Q3 problem at 256^2 (769^2 nodes); the small float64 solves held on the
+# card against the CPU.  jax_iterations: the JAX package's count for the
+# float32 poisson at 256^2 (its own CPU run: 4 iterations, rel. res.
+# 9.08e-8); the card must take at most 3 more.  In float64 the count stays
+# mesh-independent (2 at 256^2 and 512^2 in the JAX package on a CPU), and
+# the 2048^2 solve must take at most 2 more than 256^2's; in float32 it
+# grows with the mesh in both packages (the JAX package on a CPU: 4, 5, 7
+# at 256^2, 512^2, 1024^2), and the 2048^2 solve must converge within the
+# budget of 50
+STATIONARY = dict(n=256, large_n=2048, q3_n=256, jax_iterations=4,
+                  small_n=32, small_q3_n=8, small_tri_n=16)
+Q3_PARAMETERS = {"linear_solver": "fgmres", "fgmres_restart": 10,
+                 "maximum_iterations": 500, "relative_tolerance": 1.0e-10,
+                 "absolute_tolerance": 0.0, "monitor_convergence": False}
+TRI_PARAMETERS = {"linear_solver": "fgmres", "fgmres_restart": 30,
+                  "maximum_iterations": 500, "relative_tolerance": 1.0e-9,
+                  "absolute_tolerance": 1.0e-9,
+                  "monitor_convergence": False}
+# the P2 triangle bounds of the JAX package's table (utils/spectral.py)
+LAMBDA_TRI2 = (0.3923, 2.0599)
+# node grids of the degree-3 and 4 kernel rows: (K1, K2 field; K3 field)
+HIGH_DEGREE_GRIDS = {3: (769, 385), 4: (513, 257)}
+KEYS_POISSON = ("stencil_apply", "cheb_smooth_real")
+KEYS_Q3 = ("stencil_apply_q3", "cheb_smooth_real_q3")
+
+
+def poisson_problem(n, dtype, device):
+    """``bench_extra.py``'s ``poisson``: Q1 quads, beta = 1e-4, v_d =
+    sin(pi x) sin(pi y), f = 0, zero Dirichlet data, GMRES(10), budget 50,
+    rtol 1e-6, the 20-step Chebyshev mass solve (``Multigrid=False``).
+    Returns the problem and its ``linear_solve`` arguments."""
+    from control_tpu_torch import (Control, UnitSquareMesh, FunctionSpace,
+                                   Function, DirichletBC, SpatialCoordinate,
+                                   grad, inner, dx, sin, pi)
+    mesh = UnitSquareMesh(n, n, quadrilateral=True, dtype=dtype,
+                          device=device)
+    space = FunctionSpace(mesh, "Lagrange", 1)
+    X = SpatialCoordinate(mesh)
+
+    def fdo(trial, test, u):
+        return inner(grad(trial), grad(test)) * dx
+
+    def ds_(test):
+        v_d = Function(space).interpolate(sin(pi * X[0]) * sin(pi * X[1]))
+        return inner(v_d, test) * dx, v_d
+
+    def ff(test):
+        return inner(Function(space), test) * dx
+
+    ctl = Control.Stationary(space, fdo, desired_state=ds_, force_f=ff,
+                             beta=1e-4,
+                             bcs_v=DirichletBC(space, 0.0, "on_boundary"))
+    return ctl, dict(lambda_v_bounds=LAMBDA_2D,
+                     solver_parameters=SOLVER_PARAMETERS)
+
+
+def q3_mass_bounds():
+    """The Jacobi-scaled mass bounds of Q3 (``tests/test_degree3.py``):
+    the spectrum of diag(M)^{-1} M on an 8^2 mesh, in float64 on the CPU,
+    widened by 0.98 / 1.02."""
+    from control_tpu_torch import (UnitSquareMesh, FunctionSpace,
+                                   TrialFunction, TestFunction, inner, dx,
+                                   assemble)
+    mesh = UnitSquareMesh(8, 8, quadrilateral=True, dtype=torch.float64,
+                          device="cpu")
+    space = FunctionSpace(mesh, "Lagrange", 3)
+    M = assemble(inner(TrialFunction(space), TestFunction(space))
+                 * dx).to_dense().numpy()
+    d = np.sqrt(np.diag(M))
+    lam = np.linalg.eigvalsh(M / d[:, None] / d[None, :])
+    return 0.98 * float(lam[0]), 1.02 * float(lam[-1])
+
+
+def poisson_q3_problem(n, dtype, device, bounds):
+    """``tests/test_degree3.py:62-125``: Q3 quads, forward operator
+    -div grad + I, beta = 1e-3, no boundary conditions, right-hand sides
+    assembled from the exact pair (v = x e^y, zeta = sin(pi x) sin(2 pi
+    y)), so that the discrete solution is the interpolated pair itself;
+    FGMRES(10), budget 500, rtol 1e-10.  Returns the problem, its
+    ``linear_solve`` arguments and the exact pair."""
+    from control_tpu_torch import (Control, UnitSquareMesh, FunctionSpace,
+                                   Function, TestFunction,
+                                   SpatialCoordinate, grad, inner, dx, sin,
+                                   exp, pi, assemble)
+    mesh = UnitSquareMesh(n, n, quadrilateral=True, dtype=dtype,
+                          device=device)
+    X = SpatialCoordinate(mesh)
+    space = FunctionSpace(mesh, "Lagrange", 3)
+    test = TestFunction(space)
+    beta = 1.0e-3
+
+    def fdo(trial, test, u):
+        return inner(grad(trial), grad(test)) * dx + inner(trial, test) * dx
+
+    ctl = Control.Stationary(space, fdo, beta=beta, bcs_v=None)
+    v_ref = Function(space).interpolate(X[0] * exp(X[1]))
+    zeta_ref = Function(space).interpolate(sin(pi * X[0])
+                                           * sin(2.0 * pi * X[1]))
+    b_0 = assemble(inner(v_ref, test) * dx
+                   + inner(grad(zeta_ref), grad(test)) * dx
+                   + inner(zeta_ref, test) * dx)
+    b_1 = assemble(inner(grad(v_ref), grad(test)) * dx
+                   + inner(v_ref, test) * dx
+                   - 1.0 / beta * inner(zeta_ref, test) * dx)
+    return ctl, dict(lambda_v_bounds=bounds, v_d=b_0, f=b_1,
+                     solver_parameters=Q3_PARAMETERS), (v_ref, zeta_ref)
+
+
+def tri_mms_problem(n, dtype, device):
+    """``tests/test_stationary.py:76-143`` at one size: Poisson control on
+    P2 triangles, beta = 1e-3, zero Dirichlet data, FGMRES(30) to 1e-9."""
+    from control_tpu_torch import (Control, UnitSquareMesh, FunctionSpace,
+                                   Function, DirichletBC, SpatialCoordinate,
+                                   grad, div, inner, dx, sin, exp, pi)
+    mesh = UnitSquareMesh(n, n, dtype=dtype, device=device)
+    X = SpatialCoordinate(mesh)
+    space = FunctionSpace(mesh, "Lagrange", 2)
+    beta = 1.0e-3
+    v = sin(pi * X[0]) * sin(pi * X[1]) * exp(X[0] + X[1])
+    zeta = sin(2.0 * pi * X[0]) * sin(2.0 * pi * X[1])
+
+    def fdo(trial, test, u):
+        return inner(grad(trial), grad(test)) * dx
+
+    def ds_(test):
+        v_d = Function(space).interpolate(-div(grad(zeta)) + v)
+        return inner(v_d, test) * dx, Function(space).interpolate(v)
+
+    def ff(test):
+        f = Function(space).interpolate(-div(grad(v)) - 1.0 / beta * zeta)
+        return inner(f, test) * dx
+
+    ctl = Control.Stationary(space, fdo, desired_state=ds_, force_f=ff,
+                             beta=beta,
+                             bcs_v=DirichletBC(space, 0.0, "on_boundary"))
+    return ctl, dict(lambda_v_bounds=LAMBDA_TRI2,
+                     solver_parameters=TRI_PARAMETERS)
+
+
+def stationary_solve(ctl, kw):
+    return ctl.linear_solve(print_error=False, **kw)
+
+
+def check_small_stationary(dev, record, cases):
+    """Stationary solves in float64 on the card against the same solves on
+    the CPU (``held_on_card``).  ``cases``: (label, build(device) ->
+    (problem, solve arguments), to_initial)."""
+    out = {}
+    for label, build, to_initial in cases:
+        def run(device):
+            ctl, kw = build(device)
+            return stationary_solve(ctl, kw), ctl
+
+        out[label] = held_on_card(dev, f"stationary {label}", run,
+                                  to_initial=to_initial)
+    record["small_f64_stationary"] = out
+
+
+def timed_stationary(dev, record, card, key, metric, build, max_its, keys,
+                     dtype):
+    """A stationary solve at full width: solved once (building and caching
+    its pc), the pc build timed apart from the solve's own inputs, then
+    solved again with CUDA events around it and every launch count set to
+    0 just before (``repeat_solve_row``); it must converge within
+    ``max_its`` below 1e-6 with the kernels ``keys`` launched, v and zeta
+    finite and on the card."""
+    from control_tpu_torch import inner, dx
+    from control_tpu_torch.config import full_precision
+    from control_tpu_torch.fem.assemble import assemble
+    from control_tpu_torch.fem.space import Function, combine_masks
+
+    t0 = time.perf_counter()
+    ctl, kw, *extra = build(dev)
+    first = stationary_solve(ctl, kw)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    with full_precision():
+        space = ctl._space_v
+        mask = combine_masks(space, ctl._bcs_v) if ctl._bcs_v else None
+        D_v, D_zeta = ctl.construct_D_v(Function(space, data=ctl._v.data))
+        M = assemble(ctl._M_v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ctl.construct_pc(False, kw["lambda_v_bounds"], mask, mask, D_v,
+                         D_zeta, M)
+        torch.cuda.synchronize()
+        pc_build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    info, row = repeat_solve_row(lambda: stationary_solve(ctl, kw), metric,
+                                 "stationary", card, dtype=dtype)
+    its = info.iterations
+    row.update(pc_build_s=pc_build_s, first_solve_s=first_s,
+               first_iterations=first.iterations,
+               nodes=list(space.grid_shape),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               residual_history=[float(r) for r in info.res_norms[:its + 1]])
+    if extra:
+        # the L2 errors of v and zeta against the exact discrete pair
+        for name, got, ref in (("v", ctl._v, extra[0][0]),
+                               ("zeta", ctl._zeta, extra[0][1])):
+            d = Function(space, data=got.data - ref.data)
+            row[f"l2_error_{name}"] = float(
+                abs(float(assemble(inner(d, d) * dx))) ** 0.5)
+    fields = {"v": (ctl._v.data[None], space, 1),
+              "zeta": (ctl._zeta.data[None], space, 1)}
+    return judge_solve(record, key, row, info, max_its, keys, fields)
+
+
+def make_stencil_on_card(gen, n_w, grid, complex_, degree, dev):
+    """``make_stencil`` made on the card (float64 / complex128) from a
+    seeded generator: the large degree-3 and 4 stencils (up to 232 M
+    complex weights) would take numpy tens of seconds."""
+    grid = tuple(grid)
+    K = (2 * degree + 1) ** len(grid)
+
+    def uniform(lo, hi, shape):
+        u = torch.rand(shape, generator=gen, dtype=torch.float64,
+                       device=dev)
+        return lo + (hi - lo) * u
+
+    w = -0.5 * uniform(0.2, 1.0, (n_w, K) + grid)
+    w[:, K // 2] = 4.0 + (K - 9) / 2.0 + uniform(0.0, 1.0, (n_w,) + grid)
+    if complex_:
+        w = w * torch.exp(1j * uniform(-0.3, 0.3, (n_w, K) + grid))
+    axes = tuple(range(1, len(grid) + 1))
+    lam = 1.05 * torch.amax(w.abs().sum(dim=1) / w[:, K // 2].abs(),
+                            dim=axes)
+    return (w, 1.0 / w[:, K // 2], 0.5 * (lam + lam / 4.0),
+            0.5 * (lam - lam / 4.0))
+
+
+def check_kernels_high_degree(dev, record):
+    """K1, K2 and K3 at degree 3 (K = 49) and 4 (K = 81) against their
+    plain versions on the card, float64 and float32: K1 one application
+    and K2 the 20-step mass solve + r on the Q3 256^2 finest level (one
+    769^2 field, shared weights) and at degree 4 on 513^2; K3 32
+    frequencies, 3 steps + r, on 385^2 (degree 3) and 257^2 (degree 4);
+    the narrow K3 (bf16 planes under float32 fields, float32 under
+    float64) at degree 3."""
+    from control_tpu_torch.ops import stencil as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    results = {k: [] for k in ("K1q3", "K2q3", "K3q3", "K1q4", "K2q4",
+                               "K3q4", "K3nq3")}
+    nf = (FLAGSHIP["n_t"] - 1) // 2 + 1
+    made = {}
+
+    def stencil(n_w, grid, complex_, degree):
+        key = (n_w, grid, complex_, degree)
+        if key not in made:
+            made[key] = make_stencil_on_card(gen, n_w, grid, complex_,
+                                             degree, dev)
+        return made[key]
+
+    def field(shape, dt):
+        a = torch.randn(shape, generator=gen, dtype=torch.float64,
+                        device=dev)
+        if dt.is_complex:
+            a = a + 1j * torch.randn(shape, generator=gen,
+                                     dtype=torch.float64, device=dev)
+        return a.to(dt)
+
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        cdt = torch.complex128 if dtype == torch.float64 else torch.complex64
+        for degree, (g, gc) in HIGH_DEGREE_GRIDS.items():
+            K = (2 * degree + 1) ** 2
+            w, dinv, theta, delta = stencil(1, (g, g), False, degree)
+            wt, dt_ = w[0].to(dtype), dinv[0].to(dtype)
+            xt = field((1, g, g), dtype)
+            results[f"K1q{degree}"].append(check_row(
+                f"K1q{degree}", name, xt.shape,
+                st.apply_stencil(wt, xt, degree),
+                st._apply_plain(wt, xt, degree),
+                lambda: st.apply_stencil(wt, xt, degree),
+                lambda: st._apply_plain(wt, xt, degree),
+                (nbytes(wt, xt, xt), stencil_flops(K, xt, 1)),
+                degree=degree))
+            bt, x0 = xt, torch.zeros_like(xt)
+            th, de = float(theta[0]), float(delta[0])
+
+            def kern():
+                return st.fused_cheb_smooth(wt, dt_, bt, x0, 20, th, de,
+                                            degree, want_residual=True)
+
+            def plain():
+                return st._cheb_plain(wt, dt_, bt, x0, 20, th, de, degree,
+                                      want_residual=True)
+
+            results[f"K2q{degree}"].append(check_row(
+                f"K2q{degree}", name, bt.shape, kern(), plain(), kern, plain,
+                (nbytes(wt, dt_, bt, x0, bt, bt),
+                 cheb_flops(K, bt, 20, True)), steps=20, degree=degree))
+            del wt, dt_, xt, bt, x0
+            wc, dc, thc, dec = stencil(nf, (gc, gc), True, degree)
+            wt, dt_ = wc.to(cdt), dc.to(cdt)
+            bt, xt = field((nf, gc, gc), cdt), field((nf, gc, gc), cdt)
+            th, de = thc.to(dtype), dec.to(dtype)
+
+            def kern():
+                return st.fused_cheb_smooth(wt, dt_, bt, xt, 3, th, de,
+                                            degree, want_residual=True)
+
+            def plain():
+                return st._cheb_plain(wt, dt_, bt, xt, 3, th, de, degree,
+                                      want_residual=True)
+
+            work = (nbytes(wt, dt_, bt, xt, th, de, bt, bt),
+                    cheb_flops(K, bt, 3, True))
+            results[f"K3q{degree}"].append(check_row(
+                f"K3q{degree}", name, bt.shape, kern(), plain(), kern, plain,
+                work, steps=3, degree=degree))
+            if degree == 3:
+                wd = NARROW_WEIGHTS[name]
+                wn, dn = st.narrow_planes(wt, wd), st.narrow_planes(dt_, wd)
+
+                def nkern():
+                    return st.fused_cheb_smooth(wn, dn, bt, xt, 3, th, de,
+                                                3, want_residual=True,
+                                                weight_dtype=wd)
+
+                def nplain():
+                    return st._cheb_plain(wn, dn, bt, xt, 3, th, de, 3,
+                                          want_residual=True,
+                                          weight_dtype=wd)
+
+                results["K3nq3"].append(check_row(
+                    "K3nq3", name, bt.shape, nkern(), nplain(), nkern,
+                    nplain, (nbytes(wn, dn, bt, xt, th, de, bt, bt),
+                             cheb_flops(K, bt, 3, True)),
+                    steps=3, degree=3, weight_dtype=wd,
+                    full_precision_ms=cuda_ms(kern),
+                    full_precision_bound_ms=bound(*work, name)[0]))
+                del wn, dn
+            del wt, dt_, bt, xt
+    made.clear()
+    torch.cuda.empty_cache()
+    record["kernel_checks_high_degree"] = results
+    report(results)
+    return results
+
+
+def stationary_phase(dev, record, card):
+    """The small float64 solves on the card against the CPU, then
+    ``poisson`` at 256^2 and 2048^2 (float32 and float64) and
+    ``poisson_q3`` at 256^2 (float64), each timed with its launches;
+    returns their rows."""
+    q3_bounds = q3_mass_bounds()
+    record["q3_mass_bounds"] = q3_bounds
+    st_ = STATIONARY
+    check_small_stationary(dev, record, (
+        (f"poisson {st_['small_n']}^2",
+         lambda d: poisson_problem(st_["small_n"], torch.float64, d),
+         True),
+        (f"poisson_q3 {st_['small_q3_n']}^2",
+         lambda d: poisson_q3_problem(st_["small_q3_n"], torch.float64, d,
+                                      q3_bounds)[:2], True),
+        (f"P2 triangles {st_['small_tri_n']}^2",
+         lambda d: tri_mms_problem(st_["small_tri_n"], torch.float64, d),
+         True)))
+    rows = {}
+    n, big = st_["n"], st_["large_n"]
+    for key, size, dtype, max_its in (
+            ("poisson", n, "float32", st_["jax_iterations"] + 3),
+            ("poisson_f64", n, "float64",
+             SOLVER_PARAMETERS["maximum_iterations"]),
+            ("poisson_large", big, "float32",
+             SOLVER_PARAMETERS["maximum_iterations"]),
+            ("poisson_large_f64", big, "float64", None)):
+        if max_its is None:
+            # multigrid counts stay mesh-independent in float64
+            max_its = rows["poisson_f64"]["iterations"] + 2
+        suffix = "" if dtype == "float32" else "_f64"
+        rows[key] = timed_stationary(
+            dev, record, card, key,
+            f"poisson_{size}x{size}_kkt_solve{suffix}_cuda",
+            lambda d, size=size, dtype=dtype: poisson_problem(
+                size, getattr(torch, dtype), d),
+            max_its, KEYS_POISSON, dtype)
+    rows["poisson_q3"] = timed_stationary(
+        dev, record, card, "poisson_q3",
+        f"poisson_q3_{st_['q3_n']}x{st_['q3_n']}_kkt_solve_cuda",
+        lambda d: poisson_q3_problem(st_["q3_n"], torch.float64, d,
+                                     q3_bounds),
+        Q3_PARAMETERS["maximum_iterations"], KEYS_Q3, "float64")
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1604,6 +2037,11 @@ def main():
                        LAMBDA_3D, BE_PARAMETERS["maximum_iterations"],
                        KEYS_3D, parameters=BE_PARAMETERS)
     lap("be_3d")
+    # stationary control: K1-K3 at degree 3 and 4, then the solves
+    high = check_kernels_high_degree(dev, record)
+    lap("kernel_checks_high_degree")
+    stat = stationary_phase(dev, record, card)
+    lap("stationary")
     print(f"phase seconds {json.dumps(marks)}", flush=True)
 
     def row(kname, source, replaces, key, launches, checks_rows,
@@ -1630,6 +2068,7 @@ def main():
     m2l = mg_n["multigrid_2d"]["launches"]
     m3l = mg_n["multigrid_3d"]["launches"]
     bel, h3bel = be["launches"], h3be["launches"]
+    q3l = stat["poisson_q3"]["launches"]
     kernels_line = {"kernels": [
         row("K1 stencil_apply", apply_src, "control_tpu/ops/stencil.py:206",
             "stencil_apply", fl, checks["K1"]),
@@ -1687,6 +2126,27 @@ def main():
         row("K5 cheb_smooth 3-D (real, backward-Euler edge rows, batch 1)",
             cheb_src, "control_tpu/ops/stencil.py:1090",
             "cheb_smooth_3d_real", h3bel, checks["K5rbe"]),
+        row("K1 stencil_apply (degree 3)", apply_src,
+            "control_tpu/ops/stencil.py:206", "stencil_apply_q3", q3l,
+            high["K1q3"], dtype="float64"),
+        row("K2 cheb_smooth (real, degree 3)", cheb_src,
+            "control_tpu/ops/stencil.py:589", "cheb_smooth_real_q3", q3l,
+            high["K2q3"], dtype="float64"),
+        row("K3 cheb_smooth (complex, degree 3)", cheb_src,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex_q3", q3l,
+            high["K3q3"]),
+        row("K1 stencil_apply (degree 4)", apply_src,
+            "control_tpu/ops/stencil.py:206", "stencil_apply_q4", q3l,
+            high["K1q4"], dtype="float64"),
+        row("K2 cheb_smooth (real, degree 4)", cheb_src,
+            "control_tpu/ops/stencil.py:589", "cheb_smooth_real_q4", q3l,
+            high["K2q4"], dtype="float64"),
+        row("K3 cheb_smooth (complex, degree 4)", cheb_src,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex_q4", q3l,
+            high["K3q4"]),
+        row("K3 cheb_smooth (complex, degree 3, bf16 weights)", narrow_src,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex_q3_bf16",
+            q3l, high["K3nq3"]),
     ]}
     record["kernels"] = kernels_line["kernels"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

@@ -11,6 +11,7 @@ card unless the caller asks for the CPU (``UnitCubeMesh(..., device="cpu")``).
 Public surface mirrors the reference:
 
     from control_tpu_torch import *
+    Control.Stationary(...).linear_solve(...)
     Control.Instationary(...).linear_solve(...)
 """
 

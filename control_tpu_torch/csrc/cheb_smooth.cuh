@@ -39,6 +39,13 @@
 // blocking in shared memory, thread block clusters) is the next step for
 // speed.
 //
+// 2-D grids take degrees 1-4 (K = 9, 25, 49, 81: Q1-Q4, and P1/P2
+// triangles in their 3 x 3 and 5 x 5 footprints), as the TPU kernels K2
+// and K3 take any degree; 3-D grids degrees 1 and 2.  A thread reads its
+// neighbours straight from device memory (no shared tile), so a wider
+// stencil only lengthens the unrolled offset loop and the rows of
+// neighbours that adjacent blocks read again from L1/L2.
+//
 // Complex fields are read as interleaved float2/double2 straight from the
 // storage of torch's complex tensors (K5 builds no [[re, -im], [im, re]]
 // coupled weight stack: two real volumes per complex weight, not four);
@@ -185,6 +192,14 @@ int dispatch(const void* w, long long w_bstride, const void* dinv,
                                     ny, nx, steps, stream);
     if (nd == 2 && degree == 2)
         return run<2, 2, V, Wt>(wv, w_bstride, dv, d_bstride, bv, xv,
+                                    th, de, th_stride, xo, xt, pv, rv, n, nz,
+                                    ny, nx, steps, stream);
+    if (nd == 2 && degree == 3)
+        return run<2, 3, V, Wt>(wv, w_bstride, dv, d_bstride, bv, xv,
+                                    th, de, th_stride, xo, xt, pv, rv, n, nz,
+                                    ny, nx, steps, stream);
+    if (nd == 2 && degree == 4)
+        return run<2, 4, V, Wt>(wv, w_bstride, dv, d_bstride, bv, xv,
                                     th, de, th_stride, xo, xt, pv, rv, n, nz,
                                     ny, nx, steps, stream);
     if (nd == 3 && degree == 1)

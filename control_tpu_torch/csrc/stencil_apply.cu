@@ -2,8 +2,9 @@
 // y[b] = sum_k w[b|0, k] * shift_k(x[b]).
 //
 // K1 replaces control_tpu/ops/stencil.py:_pallas_kernel (via apply_stencil),
-// the TPU kernel that streams a zero-padded source plane and all K = 9
-// weight planes of a batch entry through VMEM in one grid step.  K6
+// the TPU kernel that streams a zero-padded source plane and all K weight
+// planes of a batch entry through VMEM in one grid step, at any degree
+// (K = 9, 25, 49, 81 here: degrees 1-4).  K6
 // replaces control_tpu/ops/stencil.py:_pallas_kernel_3d (via
 // _apply_3d_pallas), which keeps the padded source volume in VMEM and
 // streams the K = 27 (degree 2: 125) weight planes of one output z-plane per
@@ -63,6 +64,10 @@ int launch_apply(const void* w, long long w_bstride, const void* x, void* y,
         stencil_apply_kernel<2, 1, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
     } else if (nd == 2 && degree == 2) {
         stencil_apply_kernel<2, 2, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
+    } else if (nd == 2 && degree == 3) {
+        stencil_apply_kernel<2, 3, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
+    } else if (nd == 2 && degree == 4) {
+        stencil_apply_kernel<2, 4, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
     } else if (nd == 3 && degree == 1) {
         stencil_apply_kernel<3, 1, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
     } else if (nd == 3 && degree == 2) {

@@ -1,9 +1,11 @@
 """Shared machinery for the problem layer: per-block approximate solvers
 (the reference's ``LinearSolver(assemble(form, bcs), solver_parameters)``
-building blocks)."""
+building blocks), the Picard operator and the refusals the problem classes
+share."""
 
 import torch
 
+from ..fem.assemble import assemble
 from ..fem.space import Function
 from ..ops.local_op import LocalOp, MaskedOp
 from ..ops.stencil import StencilOp, fused_cheb_smooth
@@ -113,3 +115,29 @@ def bc_lift_function(space, bcs):
     for bc in bcs:
         v.data = torch.where(bc.mask, bc.g, v.data)
     return v
+
+
+def tensor_token(t):
+    """A hashable key for a tensor's value (None for None): the pc-state
+    caches key on the linearisation state and the masks."""
+    if t is None:
+        return None
+    return (tuple(t.shape), str(t.dtype), t.detach().cpu().numpy().tobytes())
+
+
+def picard_operator(form):
+    """Assemble a bilinear form (operator frozen at the current state) --
+    the reference's construct_D_v without Gauss_Newton
+    (control/control.py:314-317)."""
+    return assemble(form)
+
+
+def refuse_refinement(solver_parameters):
+    """Raise ``NotImplementedError`` when ``solver_parameters`` ask for
+    the JAX package's mixed-precision iterative refinement
+    (``iterative_refinement``, ``refinement_inner_tolerance``), which is
+    not ported."""
+    if solver_parameters is not None and (
+            "iterative_refinement" in solver_parameters
+            or "refinement_inner_tolerance" in solver_parameters):
+        raise NotImplementedError("iterative refinement is not ported yet")

@@ -2,7 +2,9 @@
 namespace class (reference control/control.py:99)."""
 
 from .instationary import Instationary
+from .stationary import Stationary
 
 
 class Control:
+    Stationary = Stationary
     Instationary = Instationary

@@ -60,7 +60,8 @@ from ..solvers.block import (MultiBlockSystem, BlockAction,
                              finalize_solve_info)
 from ..solvers.multigrid import MGConfig, index_params, flip_params
 from .common import (BlockSolver, mass_solver, regularized_stiffness,
-                     zero_rows, bc_lift_function)
+                     zero_rows, bc_lift_function, refuse_refinement,
+                     tensor_token)
 
 
 def _probe_form_dependence(form_fn, space, coeff_space, t_samples):
@@ -1147,15 +1148,10 @@ class Instationary:
 
     # ------------------------------------------------------------ linear solve
     def _pc_key(self, Multigrid, lambda_v_bounds, mask, Dv_A):
-        def tok(t):
-            if t is None:
-                return None
-            return (tuple(t.shape), str(t.dtype),
-                    t.detach().cpu().numpy().tobytes())
         return (self._n_t, self._CN, self._beta, self._time_interval,
                 Multigrid,
                 None if lambda_v_bounds is None else tuple(lambda_v_bounds),
-                tok(mask), getattr(self, "_schur_mode", "scan"),
+                tensor_token(mask), getattr(self, "_schur_mode", "scan"),
                 getattr(self, "_paradiag_alpha", None),
                 getattr(self, "_paradiag_dc", 1),
                 getattr(self, "_paradiag_cycles", 2),
@@ -1164,7 +1160,7 @@ class Instationary:
                 getattr(self, "_mass_cheb_steps", None),
                 getattr(self, "_schur_jacobi_steps", None),
                 getattr(self, "_be_epsilon", 1.0e-3),
-                id(self._space_v), tok(Dv_A))
+                id(self._space_v), tensor_token(Dv_A))
 
     def linear_solve(self, *, P=None, solver_parameters=None,
                      Multigrid=False, lambda_v_bounds=None, v_d=None,
@@ -1185,11 +1181,7 @@ class Instationary:
                 "user preconditioners for backward Euler are not ported yet")
         if plots:
             raise NotImplementedError("plots are not ported yet")
-        if solver_parameters is not None and (
-                "iterative_refinement" in solver_parameters
-                or "refinement_inner_tolerance" in solver_parameters):
-            raise NotImplementedError(
-                "iterative refinement is not ported yet")
+        refuse_refinement(solver_parameters)
         with full_precision():
             info = self._linear_solve(P, solver_parameters, Multigrid,
                                       lambda_v_bounds, v_d, f, print_error)
@@ -1377,11 +1369,7 @@ class Instationary:
                 "not ported yet")
         if plots:
             raise NotImplementedError("plots are not ported yet")
-        if solver_parameters is not None and (
-                solver_parameters.get("iterative_refinement")
-                or "refinement_inner_tolerance" in solver_parameters):
-            raise NotImplementedError(
-                "iterative refinement is not ported yet")
+        refuse_refinement(solver_parameters)
         if getattr(self, "_divfree_initial", False):
             raise NotImplementedError(
                 "the divergence-free projection of the initial state is "

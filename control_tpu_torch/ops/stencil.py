@@ -25,7 +25,9 @@ operations of the preconditioner on the card:
   vector fields: the velocity mass solves and V-cycles of the
   incompressible problems.
 
-The 3-D kernels take degree 1 (K = 27) and degree 2 (K = 125) stencils.
+The 2-D kernels take degrees 1-4 (K = 9, 25, 49, 81), the 3-D ones degree
+1 (K = 27) and degree 2 (K = 125); other degrees on a CUDA tensor raise
+``NotImplementedError``.
 K2, K3 and K5 (real and complex) also read weight and diagonal planes
 stored narrower than the fields (``weight_dtype``: bf16 or f16, or f32
 under float64 fields; complex planes as (re, im) pairs,
@@ -50,25 +52,29 @@ import torch
 from . import kernels
 
 # kernel launches per wrapper (one per call that reaches the card): K1,
-# K2, K3, K4 on 2-D grids; K6 and K5 (real, complex) on 3-D grids, at
-# degree 1 and (the ``_q2`` keys) degree 2; K5v on 3-D vector fields; the
-# narrow-weight variants below
-launch_counts = {"stencil_apply": 0, "cheb_smooth_real": 0,
-                 "cheb_smooth_complex": 0, "cheb_smooth_vector": 0,
-                 "stencil_apply_3d": 0, "cheb_smooth_3d_real": 0,
-                 "cheb_smooth_3d_complex": 0, "stencil_apply_3d_q2": 0,
-                 "cheb_smooth_3d_real_q2": 0,
-                 "cheb_smooth_3d_complex_q2": 0, "cheb_smooth_3d_vector": 0}
+# K2, K3 on 2-D grids at degrees 1 and 2 and (the ``_q3``, ``_q4`` keys)
+# 3 and 4; K4 on 2-D vector fields; K6 and K5 (real, complex) on 3-D
+# grids, at degree 1 and (the ``_q2`` keys) degree 2; K5v on 3-D vector
+# fields; the narrow-weight variants below
+_KERNELS_2D = tuple(f"{k}{q}" for q in ("", "_q3", "_q4")
+                    for k in ("stencil_apply", "cheb_smooth_real",
+                              "cheb_smooth_complex"))
+launch_counts = dict.fromkeys(
+    _KERNELS_2D + ("cheb_smooth_vector", "stencil_apply_3d",
+                   "cheb_smooth_3d_real", "cheb_smooth_3d_complex",
+                   "stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
+                   "cheb_smooth_3d_complex_q2", "cheb_smooth_3d_vector"), 0)
 # narrow weight planes (``weight_dtype``): one key per scalar smoother
 # and storage, e.g. "cheb_smooth_3d_complex_q2_bf16"
 _WEIGHT_TAGS = {torch.bfloat16: "bf16", torch.float16: "f16",
                 torch.float32: "f32"}
 launch_counts.update({
     f"{k}_{tag}": 0
-    for k in ("cheb_smooth_real", "cheb_smooth_complex",
-              "cheb_smooth_3d_real", "cheb_smooth_3d_complex",
-              "cheb_smooth_3d_real_q2", "cheb_smooth_3d_complex_q2")
+    for k in launch_counts if k.startswith("cheb_smooth")
+    and not k.endswith("vector")
     for tag in _WEIGHT_TAGS.values()})
+# the degrees with a CUDA kernel, per grid dimension
+CUDA_DEGREES = {2: (1, 2, 3, 4), 3: (1, 2)}
 
 # the vector apply forms its products one leading window offset at a time
 # when all K of them at once would take more than this (the 3-D Q2 weight
@@ -203,9 +209,15 @@ def _is_vector_stencil(w, nd=2):
     return w.dim() >= nd + 3
 
 
-def _key_3d(base, degree):
-    """The launch-count key of a 3-D scalar kernel at ``degree``."""
-    return base + ("_q2" if degree == 2 else "")
+def _key(base, degree, nd):
+    """The launch-count key of a scalar kernel (``base`` its 2-D name)
+    at ``degree``: ``_3d`` in 3-D, ``_q<degree>`` from degree 2 in 3-D and
+    from degree 3 in 2-D."""
+    if nd == 3:
+        return base.replace("stencil_apply", "stencil_apply_3d").replace(
+            "cheb_smooth", "cheb_smooth_3d") + (
+                f"_q{degree}" if degree > 1 else "")
+    return base + (f"_q{degree}" if degree > 2 else "")
 
 
 def _apply_plain(w, x, degree, nd=2):
@@ -262,14 +274,14 @@ def _apply_plain(w, x, degree, nd=2):
 
 
 def _cuda_grid(wshape, x, degree, nd, what):
-    """Checks shared by the CUDA wrappers: a scalar stencil of degree 1 or
-    2 in 2-D or 3-D (the kernels built), weights of shape ``wshape``
-    (K, *grid) or (nw, K, *grid) on the grid of x.  Returns the grid
-    shape."""
+    """Checks shared by the CUDA wrappers: a scalar stencil of a degree
+    the kernels are built for (``CUDA_DEGREES``: 1-4 in 2-D, 1 and 2 in
+    3-D), weights of shape ``wshape`` (K, *grid) or (nw, K, *grid) on the
+    grid of x.  Returns the grid shape."""
     if nd not in (2, 3) or len(wshape) >= nd + 3:
         raise NotImplementedError(
             f"{what}: only scalar 2-D and 3-D stencils have a CUDA kernel")
-    if degree not in (1, 2):
+    if degree not in CUDA_DEGREES[nd]:
         raise NotImplementedError(
             f"{what}: no CUDA kernel for degree {degree} in {nd}-D")
     grid = tuple(x.shape[-nd:])
@@ -317,8 +329,7 @@ def _apply_cuda(w, x, degree, nd):
         y.data_ptr(), max(n, 1), *_zyx(grid), nd, degree,
         kernels.stream_ptr(x.device))
     kernels.check(code, "stencil_apply")
-    launch_counts[_key_3d("stencil_apply_3d", degree) if nd == 3
-                  else "stencil_apply"] += 1
+    launch_counts[_key("stencil_apply", degree, nd)] += 1
     return y
 
 
@@ -543,8 +554,7 @@ def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
             None if r is None else r.data_ptr(), max(n, 1), *_zyx(grid), nd,
             degree, int(steps), kernels.stream_ptr(b.device))
     kind = "complex" if b.is_complex() else "real"
-    key = (_key_3d(f"cheb_smooth_3d_{kind}", degree) if nd == 3
-           else f"cheb_smooth_{kind}")
+    key = _key(f"cheb_smooth_{kind}", degree, nd)
     if narrow:
         code = lib.cheb_smooth_narrow(kernels.DTYPE_CODES[dt],
                                       kernels.WEIGHT_CODES[w.dtype], *args)

@@ -5,8 +5,12 @@ Replaces PETSc KSP (reference preconditioner/preconditioner.py:732-759):
 * ``gmres``   -- left-preconditioned restarted GMRES (PETSc's default GMRES
                  configuration: preconditioned residual norm).
 * ``fgmres``  -- flexible GMRES, right-preconditioned, true residual norm.
+* ``minres``  -- preconditioned MINRES for symmetric systems.
+* ``chebyshev`` -- Chebyshev semi-iteration with user spectral bounds
+                 (the reference's mass-matrix solver,
+                 reference control/control.py:377-385).
 
-The iteration runs as a Python loop: vectors and the Arnoldi basis stay on
+The iterations run as Python loops: vectors and the Arnoldi basis stay on
 the device of the right-hand side; the small Hessenberg column comes to the
 host once per iteration, where the Givens rotations, the convergence test
 and the back substitution run in the problem's dtype.  Operators and
@@ -161,12 +165,101 @@ def fgmres(A, b, x0=None, *, M=None, restart=30, rtol=1e-6, atol=0.0,
                        flexible=True, dtol=dtol)
 
 
-SOLVERS = {"gmres": gmres, "fgmres": fgmres}
+def minres(A, b, x0=None, *, M=None, rtol=1e-6, atol=0.0, maxiter=1000,
+           dtol=None):
+    """Preconditioned MINRES (A symmetric, M SPD); the residual norm is
+    the M-norm of the preconditioned residual, and rtol is relative to the
+    initial one."""
+    b_flat, unravel = _ravel(b)
+    ndt = _np_dtype(b_flat)
+    x = _ravel(x0)[0].clone() if x0 is not None else torch.zeros_like(b_flat)
+    Af = _flat_op(A, unravel)
+    Mf = _flat_op(M, unravel)
+
+    def dot(u, v):
+        return ndt(torch.dot(u, v).item())
+
+    r = b_flat - Af(x)
+    z = Mf(r)
+    gamma = ndt(np.sqrt(max(dot(r, z), 0.0)))
+    rnorm0 = gamma
+    tol = max(ndt(rtol * rnorm0), ndt(atol))
+    dlim = np.inf if dtol is None else ndt(dtol) * rnorm0
+    hist = np.full((maxiter + 1,), np.nan, ndt)
+    hist[0] = rnorm0
+    scale = gamma if gamma > 0 else ndt(1.0)
+    v_old, v, z = torch.zeros_like(b_flat), r / scale, z / scale
+    w, w_old = torch.zeros_like(b_flat), torch.zeros_like(b_flat)
+    eta = gamma
+    c = c_old = ndt(1.0)
+    s = s_old = ndt(0.0)
+    rnorm, it = rnorm0, 0
+    while rnorm > tol and it < maxiter and rnorm <= dlim:
+        Az = Af(z)
+        delta = dot(Az, z)
+        v_new = Az - delta * v - gamma * v_old
+        z_new = Mf(v_new)
+        gamma_new = ndt(np.sqrt(max(dot(v_new, z_new), 1e-300)))
+        a0 = c * delta - c_old * s * gamma
+        a1 = ndt(np.sqrt(a0 * a0 + gamma_new * gamma_new))
+        a2 = s * delta + c_old * c * gamma
+        a3 = s_old * gamma
+        c_new, s_new = a0 / a1, gamma_new / a1
+        w_new = (z - a3 * w_old - a2 * w) / a1
+        x = x + (c_new * eta) * w_new
+        eta = -s_new * eta
+        rnorm = abs(eta)
+        it += 1
+        hist[it] = rnorm
+        v_old, v, z = v, v_new / gamma_new, z_new / gamma_new
+        w_old, w = w, w_new
+        gamma = gamma_new
+        c_old, c, s_old, s = c, c_new, s, s_new
+    info = {"iterations": it, "res_norms": hist, "rnorm0": rnorm0,
+            "rnorm": rnorm, "converged": bool(rnorm <= tol)}
+    return unravel(x), info
+
+
+def chebyshev(A, b, bounds, iters, x0=None, M=None):
+    """Chebyshev iteration for M^{-1}A with spectrum in ``bounds``
+    (the reference's 20-iteration Jacobi-preconditioned mass solve,
+    reference control/control.py:377-385).  The fused smoother
+    (``ops.stencil.fused_cheb_smooth``) runs the same recurrence on node
+    stencils."""
+    b_flat, unravel = _ravel(b)
+    x = _ravel(x0)[0] if x0 is not None else torch.zeros_like(b_flat)
+    Af = _flat_op(A, unravel)
+    Mf = _flat_op(M, unravel)
+
+    emin, emax = bounds
+    theta = 0.5 * (emax + emin)
+    delta = 0.5 * (emax - emin)
+    sigma1 = theta / delta
+
+    d = Mf(b_flat - Af(x)) / theta
+    x = x + d
+    rho = 1.0 / sigma1
+    for _ in range(iters - 1):
+        rho_new = 1.0 / (2.0 * sigma1 - rho)
+        d = rho_new * rho * d + (2.0 * rho_new / delta) * Mf(b_flat - Af(x))
+        x = x + d
+        rho = rho_new
+    return unravel(x)
+
+
+def jacobi_apply(diag, b):
+    """b / diag, leaf by leaf on tuples."""
+    if torch.is_tensor(b):
+        return b / diag
+    return type(b)(v / d for d, v in zip(diag, b))
+
+
+SOLVERS = {"gmres": gmres, "fgmres": fgmres, "minres": minres}
 
 
 def solve_krylov(name, A, b, x0=None, **kw):
-    if name == "minres":
-        raise NotImplementedError("minres is not ported yet")
     if name not in SOLVERS:
         raise ValueError(f"unknown linear_solver {name!r}")
+    if name == "minres":
+        kw.pop("restart", None)
     return SOLVERS[name](A, b, x0=x0, **kw)

@@ -6,9 +6,10 @@ box to every stiffness-like block (reference control/control.py:356-416,
 so:
 
 * prolongation  P  = per-coarse-cell tabulation of the coarse basis at fine
-  node positions (a dilated 2-D or 3-D convolution for scalar Q1; gather,
-  one cell matrix, scatter with multiplicity averaging for degree 2 and
-  for vector spaces),
+  node positions (a dilated 2-D or 3-D convolution for scalar Q1 on
+  quadrilaterals and hexahedra; gather, one cell matrix, scatter with
+  multiplicity averaging for degree >= 2, P1/P2 triangle pairs and vector
+  spaces),
 * restriction   R  = P^T (a strided convolution for scalar Q1),
 * coarse operators by Galerkin RAP computed directly on per-cell local
   matrices,
@@ -112,17 +113,20 @@ def _vec_block(P, dim):
 
 
 class Transfer:
-    """Grid transfer between a space on a quadrilateral or hexahedral mesh
-    and the same space on the coarsened mesh.
+    """Grid transfer between a space on a quadrilateral, triangle-pair or
+    hexahedral mesh and the same space on the coarsened mesh.
 
-    Scalar degree-1 spaces: interpolation is translation-invariant on a
-    uniform mesh, so prolongation / restriction are one dilated / strided
-    convolution with the separable Q1 hat kernel, the outer power of
-    (0.5, 1, 0.5) over the grid axes (zero padding clips at the boundary).
+    Scalar degree-1 spaces on quadrilaterals and hexahedra: interpolation
+    is translation-invariant on a uniform mesh, so prolongation /
+    restriction are one dilated / strided convolution with the separable
+    Q1 hat kernel, the outer power of (0.5, 1, 0.5) over the grid axes
+    (zero padding clips at the boundary).
 
-    Degree 2 and vector spaces (the reference's gather/scatter path): the
-    fine node grid is that of a virtual degree-2d space on the coarse
-    mesh, so prolongation gathers the coarse coefficients per coarse cell,
+    Every other space (degree >= 2, triangle pairs, vector spaces: the
+    reference's gather/scatter path): the fine node grid is that of a
+    virtual degree-2d space on the coarse mesh (uniform refinement nests
+    Q_d and the P_d triangle pairs alike), so prolongation gathers the
+    coarse coefficients per coarse cell,
     applies one cell matrix (the coarse basis at the (2d+1)**ndim fine
     nodes of the cell, component by component on vector spaces), scatters
     into the virtual space and divides by the number of cells sharing each
@@ -130,9 +134,6 @@ class Transfer:
     indexing operation each (``_index_maps``)."""
 
     def __init__(self, fine_space):
-        if fine_space.mesh.cell not in ("quad", "hex"):
-            raise NotImplementedError(
-                "only quadrilateral and hexahedral transfers are ported")
         mesh_c = fine_space.mesh.coarsen()
         self.fine = fine_space
         self.ndim = fine_space.ndim
@@ -144,7 +145,8 @@ class Transfer:
         if fine_space.dim is not None:
             Pk = np.stack([_vec_block(p, fine_space.dim) for p in Pk])
         self._P_child = torch.as_tensor(Pk, dtype=dtype, device=dev)
-        self.conv = fine_space.degree == 1 and fine_space.dim is None
+        self.conv = (fine_space.degree == 1 and fine_space.dim is None
+                     and fine_space.mesh.cell in ("quad", "hex"))
         if not self.conv:
             # virtual degree-2d space on the coarse mesh: the fine grid
             self.virt = FunctionSpace(mesh_c, degree=2 * fine_space.degree,
@@ -195,7 +197,7 @@ class Transfer:
         rdt = x.real.dtype if x.is_complex() else x.dtype
         return self._kappa.to(rdt)[None, None]
 
-    # -- gather / scatter path (degree 2, vector spaces) ---------------------
+    # -- gather / scatter path (all but scalar Q1) ----------------------------
     def _cellwise(self, M, xe):
         """Apply the scalar cell matrix M to gathered coefficients
         (component by component on vector spaces)."""
@@ -217,7 +219,7 @@ class Transfer:
         return _scatter_add(self._si_coarse,
                             self._cellwise(self._P_cell.T, re), self.coarse)
 
-    # -- convolution path (scalar degree 1) ----------------------------------
+    # -- convolution path (scalar Q1, quadrilaterals and hexahedra) ----------
     def prolong(self, xc):
         if not self.conv:
             return self.prolong_slow(xc)

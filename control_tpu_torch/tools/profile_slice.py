@@ -30,7 +30,11 @@ in turns within one call on one card):
         busy share;
     python3 control_tpu_torch/tools/profile_slice.py profile stokes3d
         the same for the 3-D Stokes slice (Taylor-Hood Q2-Q1 on 16^3
-        hexahedra x 8, f64, scan), with K5v's device time.
+        hexahedra x 8, f64, scan), with K5v's device time;
+    python3 control_tpu_torch/tools/profile_slice.py profile poisson
+        the stationary ``poisson`` solve (Q1 256^2, f32; ``poisson_large``
+        at 2048^2; ``poisson_q3``, the manufactured Q3 problem at 256^2 in
+        f64), traced whole, with K1's and K2's device time (2-D, real).
 
     python3 <this checkout>/control_tpu_torch/tools/profile_slice.py vector
         K4 and K5v at the shapes of their paths (the velocity mass solves,
@@ -112,6 +116,16 @@ SLICES = {
 # the Crank-Nicolson ParaDiag slices with their weight planes stored narrow
 NARROW = {f"{k}_bf16": (k, "bfloat16")
           for k in ("flagship", "heat3d", "heat3d_q2")}
+# the stationary solves of chip_smoke.py: name -> problem(device), which
+# returns the problem and its linear_solve arguments
+STATIONARY_SLICES = {
+    "poisson": lambda dev: chip_smoke.poisson_problem(
+        chip_smoke.STATIONARY["n"], torch.float32, dev),
+    "poisson_large": lambda dev: chip_smoke.poisson_problem(
+        chip_smoke.STATIONARY["large_n"], torch.float32, dev),
+    "poisson_q3": lambda dev: chip_smoke.poisson_q3_problem(
+        chip_smoke.STATIONARY["q3_n"], torch.float64, dev,
+        chip_smoke.q3_mass_bounds())[:2]}
 STOKES_SLICES = {
     "stokes": ((chip_smoke.STOKES["n"], chip_smoke.STOKES["n_t"]),
                "stokes_problem", chip_smoke.LAMBDA_STOKES),
@@ -127,6 +141,12 @@ def problem(name):
     Stokes a window of ``WINDOW_ITERATIONS`` outer iterations, which does
     not converge and says so instead of raising)."""
     dev = torch.device("cuda", 0)
+    if name in STATIONARY_SLICES:
+        ctl, kw = STATIONARY_SLICES[name](dev)
+
+        def solve():
+            return ctl.linear_solve(print_error=False, **kw)
+        return ctl, solve, solve
     if name in STOKES_SLICES:
         size, maker, lambdas = STOKES_SLICES[name]
         ctl = getattr(chip_smoke, maker)(*size, torch.float64, dev)
@@ -288,6 +308,11 @@ def profile(name):
                     for k in ("cheb_step_kernel", "residual_kernel"))
                 and any(f", {v}," in e.name for v in ("float2", "double2")))
 
+    def real_2d(e, names):
+        return (any(f"{k}<2," in e.name for k in names)
+                and any(f", {v}," in e.name or f", {v}>" in e.name
+                        for v in ("float", "double")))
+
     device_ms = ms(kernels)
     k3_ms = ms(e for e in kernels if complex_smoother(e, 2))
     k5c_ms = ms(e for e in kernels if complex_smoother(e, 3))
@@ -305,6 +330,10 @@ def profile(name):
             "k5v_device_ms": ms(e for e in kernels
                                 if any(k in e.name for k in K5V_NAMES)),
             "mg_transfer_device_ms": ms(e for e in kernels if in_range(e)),
+            "k1_device_ms": ms(e for e in kernels
+                               if real_2d(e, ("stencil_apply_kernel",))),
+            "k2_device_ms": ms(e for e in kernels if real_2d(
+                e, ("cheb_step_kernel", "residual_kernel"))),
             "k3_device_ms": k3_ms, "k5_complex_device_ms": k5c_ms,
             "k3_share_of_device": k3_ms / device_ms,
             "k5_complex_share_of_device": k5c_ms / device_ms,
@@ -614,7 +643,7 @@ def main(argv):
         out = vector()
     elif argv[:1] == ["profile"] and len(argv) == 2 and (
             argv[1] in SLICES or argv[1] in NARROW
-            or argv[1] in STOKES_SLICES):
+            or argv[1] in STOKES_SLICES or argv[1] in STATIONARY_SLICES):
         out = profile(argv[1])
     elif (argv[:1] == ["history"] and len(argv) in (3, 5, 6)
           and argv[1] in ["stokes"] + paradiag

@@ -7,13 +7,18 @@ its local matrices, and the preconditioner state of
 with ``Ws``, ``dinvs``, ``lams``, ``Ainv``, ``wF``, ``wS`` ...; under
 backward Euler the edge-row sweeps' ``e_first`` / ``e_last`` hierarchies,
 ``wS`` and the interior ParaDiag's ``mid`` state), which the port's
-``construct_pc(..., prebuilt=state)`` accepts.  Complex leaves may
+``construct_pc(..., prebuilt=state)`` accepts, and that of
+``Stationary.construct_pc(...).state`` (``solver_0``, the mass solve's
+``w`` / ``diag`` or a hierarchy; ``solver_1`` and ``solver_2``, two
+hierarchies; the port folds the node stencils of D_v and M_v it adds,
+``wD`` and ``wM``, when they are missing).  Complex leaves may
 arrive as complex arrays or as the reference's ``{"__complex__": (re, im)}``
 pairs; both become complex tensors.  Fields of any layout pass through
 ``to_torch`` unchanged in shape: scalar (n, [nz,] ny, nx) and vector
 (n, [nz,] ny, nx, dim) stacks alike.  ``carry_state`` starts a port problem from
 the JAX package's solution arrays (v, zeta of n_t blocks, Crank-Nicolson
-or backward Euler, and, on the incompressible problems, p and mu).
+or backward Euler, and, on the incompressible problems, p and mu; on a
+stationary problem one field each).
 
 A ParaDiag state built with ``weight_dtype`` holds full-precision planes
 (the JAX package rounds them at every smoothing); the port's
@@ -69,12 +74,13 @@ def local_op(A, space):
 
 def carry_state(ctl, *, v=None, zeta=None, p=None, mu=None):
     """Set the state of the port's problem ``ctl`` from arrays of the JAX
-    package: ``v`` and ``zeta`` (n_t, *grid of the velocity space), and on
-    the incompressible problems ``p`` and ``mu`` (n_t - 1 Crank-Nicolson
-    blocks on the pressure space).  Goes through the problem's setters, so
-    boundary values are re-imposed and a shape that does not fit raises
-    ``ValueError``."""
-    from ..fem.space import MixedFunction
+    package: ``v`` and ``zeta`` (n_t, *grid of the velocity space; *grid
+    on a stationary problem), and on the incompressible problems ``p`` and
+    ``mu`` (n_t - 1 Crank-Nicolson blocks on the pressure space).  Goes
+    through the problem's setters, so boundary values are re-imposed and a
+    shape that does not fit raises ``ValueError``."""
+    from ..fem.space import Function, MixedFunction
+    stationary = not isinstance(ctl._v, MixedFunction)
     for value, setter, space in ((v, ctl.set_v, ctl._space_v),
                                  (zeta, ctl.set_zeta, ctl._space_v),
                                  (p, ctl.set_p, ctl._space_p),
@@ -84,4 +90,5 @@ def carry_state(ctl, *, v=None, zeta=None, p=None, mu=None):
         if space is None:
             raise ValueError("Undefined space_p: unable to assign value")
         data = to_tensor(value, space.device, space.dtype)
-        setter(MixedFunction(space, data.shape[0], data=data))
+        setter(Function(space, data=data) if stationary
+               else MixedFunction(space, data.shape[0], data=data))

@@ -316,3 +316,78 @@ def test_kernels_match_plain_versions_on_card(case, kind):
     key = "cheb_smooth_complex" if cplx else "cheb_smooth_real"
     assert ts.launch_counts["stencil_apply"] == before["stencil_apply"] + 1
     assert ts.launch_counts[key] == before[key] + 4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("degree", [3, 4])
+@pytest.mark.parametrize("n,shared", [(1, True), (32, True), (32, False)])
+@pytest.mark.parametrize("kind", ["float64", "float32", "complex128",
+                                  "complex64"])
+def test_high_degree_kernels_match_plain_versions_on_card(degree, n, shared,
+                                                          kind):
+    """K1 and K2/K3 at degree 3 (K = 49) and 4 (K = 81) on the card against
+    their plain versions: batch 1 and 32, shared and per-batch weights,
+    per-batch bounds, odd grid widths; the launches counted under the
+    ``_q3`` / ``_q4`` keys.  Tolerances as at degree 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dt = getattr(torch, kind)
+    cplx = dt.is_complex
+    rdt = torch.float64 if dt in (torch.float64, torch.complex128) \
+        else torch.float32
+    tol_apply, tol_cheb = ((1e-12, 1e-12) if rdt == torch.float64
+                           else (1e-5, 1e-4))
+    rng = np.random.default_rng(41 + degree)
+    K, ny, nx = (2 * degree + 1) ** 2, 29, 35
+    lead = () if shared else (n,)
+    w = -0.5 * rng.uniform(0.2, 1.0, lead + (K, ny, nx)) * 9 / K
+    w[..., K // 2, :, :] = 4.0 + rng.uniform(0.0, 1.0, lead + (ny, nx))
+    if cplx:
+        w = w * np.exp(1j * rng.uniform(-0.3, 0.3, w.shape))
+    dinv = 1.0 / w[..., K // 2, :, :]
+    b = random_stencil(rng, (n, ny, nx), cplx)
+    x0 = random_stencil(rng, (n, ny, nx), cplx)
+
+    def cu(a, dtype=dt):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device="cuda")
+
+    wt, dt_, bt, xt = cu(w), cu(dinv), cu(b), cu(x0)
+    th = cu(rng.uniform(1.0, 2.0, n), rdt)
+    de = cu(rng.uniform(0.3, 0.8, n), rdt)
+
+    def rel(got, ref):
+        return float((got - ref).abs().max() / ref.abs().max())
+
+    before = dict(ts.launch_counts)
+    assert rel(ts.apply_stencil(wt, bt, degree),
+               ts._apply_plain(wt, bt, degree)) <= tol_apply
+    got = ts.fused_cheb_smooth(wt, dt_, bt, xt, 3, th, de, degree,
+                               want_residual=True)
+    ref = ts._cheb_plain(wt, dt_, bt, xt, 3, th, de, degree,
+                         want_residual=True)
+    torch.cuda.synchronize()
+    assert rel(got[0], ref[0]) <= tol_cheb
+    assert rel(got[1], ref[1]) <= tol_cheb
+    q = f"_q{degree}"
+    key = ("cheb_smooth_complex" if cplx else "cheb_smooth_real") + q
+    assert ts.launch_counts["stencil_apply" + q] == \
+        before["stencil_apply" + q] + 1
+    assert ts.launch_counts[key] == before[key] + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nd,degree", [(2, 5), (3, 3)])
+def test_kernels_refuse_degrees_without_a_kernel_on_card(nd, degree):
+    """A CUDA stencil at a degree with no kernel (2-D degree 5, 3-D degree
+    3) raises; the plain version never runs in its place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    grid = (7,) * nd
+    K = (2 * degree + 1) ** nd
+    w = torch.ones((K,) + grid, dtype=torch.float64, device="cuda")
+    x = torch.ones((2,) + grid, dtype=torch.float64, device="cuda")
+    with pytest.raises(NotImplementedError):
+        ts.apply_stencil(w, x, degree, nd=nd)
+    with pytest.raises(NotImplementedError):
+        ts.fused_cheb_smooth(w, x[0], x, x, 2, 1.0, 0.5, degree, nd=nd)
