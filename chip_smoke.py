@@ -119,7 +119,22 @@ which raises (and the script exits non-zero) on failure:
    nodes, float64, FGMRES(10), rtol 1e-10), which must converge within
    500 iterations with K1 and K2 at degree 3 launched, and prints the L2
    errors of v and zeta against the exact pair;
-11. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers,
+11. hex Q3 (K = 343): K6, K5 real and K5 complex at degree 3 against
+   their plain versions (K6 on one 97^3 float64 field and on 15 x 73^3
+   float32 fields with shared weights; K5 real 20 steps + r on 97^3
+   float64 and 10 steps + r on 73^3 float32; K5 complex 8 frequencies
+   with their own weights, 8 steps + r, on 73^3 complex64 and 37^3
+   complex128; the narrow K5 complex with bfloat16 planes on 8 x 73^3);
+   small float64 solves (the exact pair of ``tests/test_solvers3d.py:69``
+   at hex Q3 4^3, heat3d Q3 ParaDiag 4^3 x 4) on the card against the
+   CPU; ``stationary_hex_q3``, that exact pair on 32^3 hex Q3 cells (97^3
+   nodes, float64, FGMRES(10), rtol 1e-10), which must converge within 100
+   iterations with K6 and K5 real at degree 3 launched and meet the
+   exact pair in L2; ``heat3d_q3``, heat3d on 24^3 Q3 cells (73^3 nodes)
+   x 16, float32, ParaDiag, which must converge below 1e-6 within 20
+   iterations with K6 and K5 (real, complex) at degree 3 launched; both
+   take the Jacobi-scaled hex Q3 mass bounds computed on 2^3 cells;
+12. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers,
    and last ``{"ok": true, "device": {...}}``.
 
 A full record goes to ``smoke_out/chip_smoke.json`` (git-ignored), the
@@ -1547,21 +1562,20 @@ def poisson_problem(n, dtype, device):
                      solver_parameters=SOLVER_PARAMETERS)
 
 
-def q3_mass_bounds():
-    """The Jacobi-scaled mass bounds of Q3 (``tests/test_degree3.py``):
-    the spectrum of diag(M)^{-1} M on an 8^2 mesh, in float64 on the CPU,
-    widened by 0.98 / 1.02."""
-    from control_tpu_torch import (UnitSquareMesh, FunctionSpace,
-                                   TrialFunction, TestFunction, inner, dx,
-                                   assemble)
-    mesh = UnitSquareMesh(8, 8, quadrilateral=True, dtype=torch.float64,
-                          device="cpu")
-    space = FunctionSpace(mesh, "Lagrange", 3)
-    M = assemble(inner(TrialFunction(space), TestFunction(space))
-                 * dx).to_dense().numpy()
-    d = np.sqrt(np.diag(M))
-    lam = np.linalg.eigvalsh(M / d[:, None] / d[None, :])
-    return 0.98 * float(lam[0]), 1.02 * float(lam[-1])
+def q3_mass_bounds(nd=2):
+    """The Jacobi-scaled mass bounds of Q3 (``tests/test_degree3.py``'s
+    recipe, ``utils.spectral.jacobi_mass_bounds``): the spectrum of
+    diag(M)^{-1} M on an 8^2 mesh (``nd`` 3: a 2^3 hex mesh, whose
+    interval equals that of 4^3), in float64 on the CPU, widened by 0.98 /
+    1.02."""
+    from control_tpu_torch import UnitSquareMesh, UnitCubeMesh, FunctionSpace
+    from control_tpu_torch.utils.spectral import jacobi_mass_bounds
+    if nd == 3:
+        mesh = UnitCubeMesh(2, 2, 2, dtype=torch.float64, device="cpu")
+    else:
+        mesh = UnitSquareMesh(8, 8, quadrilateral=True, dtype=torch.float64,
+                              device="cpu")
+    return jacobi_mass_bounds(FunctionSpace(mesh, "Lagrange", 3))
 
 
 def poisson_q3_problem(n, dtype, device, bounds):
@@ -1634,10 +1648,10 @@ def stationary_solve(ctl, kw):
     return ctl.linear_solve(print_error=False, **kw)
 
 
-def check_small_stationary(dev, record, cases):
+def check_small_stationary(dev, record, cases, key="small_f64_stationary"):
     """Stationary solves in float64 on the card against the same solves on
-    the CPU (``held_on_card``).  ``cases``: (label, build(device) ->
-    (problem, solve arguments), to_initial)."""
+    the CPU (``held_on_card``), recorded under ``key``.  ``cases``: (label,
+    build(device) -> (problem, solve arguments), to_initial)."""
     out = {}
     for label, build, to_initial in cases:
         def run(device):
@@ -1646,7 +1660,7 @@ def check_small_stationary(dev, record, cases):
 
         out[label] = held_on_card(dev, f"stationary {label}", run,
                                   to_initial=to_initial)
-    record["small_f64_stationary"] = out
+    record[key] = out
 
 
 def timed_stationary(dev, record, card, key, metric, build, max_its, keys,
@@ -1699,25 +1713,27 @@ def timed_stationary(dev, record, card, key, metric, build, max_its, keys,
     return judge_solve(record, key, row, info, max_its, keys, fields)
 
 
-def make_stencil_on_card(gen, n_w, grid, complex_, degree, dev):
-    """``make_stencil`` made on the card (float64 / complex128) from a
-    seeded generator: the large degree-3 and 4 stencils (up to 232 M
-    complex weights) would take numpy tens of seconds."""
+def make_stencil_on_card(gen, n_w, grid, complex_, degree, dev,
+                         dtype=torch.float64):
+    """``make_stencil`` made on the card from a seeded generator, in the
+    real ``dtype`` (complex ones as complex of it): the large degree-3
+    and 4 stencils (up to 232 M complex weights in 2-D, 1.07 G at hex Q3)
+    would take numpy tens of seconds, and in float32 the hex Q3 rows need
+    no float64 copies of their 8.5 GB of complex64 weights."""
     grid = tuple(grid)
     K = (2 * degree + 1) ** len(grid)
 
     def uniform(lo, hi, shape):
-        u = torch.rand(shape, generator=gen, dtype=torch.float64,
-                       device=dev)
-        return lo + (hi - lo) * u
+        u = torch.rand(shape, generator=gen, dtype=dtype, device=dev)
+        return u.mul_(hi - lo).add_(lo)
 
-    w = -0.5 * uniform(0.2, 1.0, (n_w, K) + grid)
+    w = uniform(0.2, 1.0, (n_w, K) + grid).mul_(-0.5)
     w[:, K // 2] = 4.0 + (K - 9) / 2.0 + uniform(0.0, 1.0, (n_w,) + grid)
-    if complex_:
-        w = w * torch.exp(1j * uniform(-0.3, 0.3, (n_w, K) + grid))
     axes = tuple(range(1, len(grid) + 1))
     lam = 1.05 * torch.amax(w.abs().sum(dim=1) / w[:, K // 2].abs(),
                             dim=axes)
+    if complex_:
+        w = torch.polar(w, uniform(-0.3, 0.3, (n_w, K) + grid))
     return (w, 1.0 / w[:, K // 2], 0.5 * (lam + lam / 4.0),
             0.5 * (lam - lam / 4.0))
 
@@ -1877,6 +1893,236 @@ def stationary_phase(dev, record, card):
         lambda d: poisson_q3_problem(st_["q3_n"], torch.float64, d,
                                      q3_bounds),
         Q3_PARAMETERS["maximum_iterations"], KEYS_Q3, "float64")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 11: hex Q3, K5 and K6 at degree 3 (K = 343)
+# ---------------------------------------------------------------------------
+
+# tests/test_solvers3d.py:69's exact pair at degree 3 on 32^3 hexahedra
+# (97^3 nodes, 343 weight planes of 2.50 GB per finest-level operator in
+# float64) through Control.Stationary(...).linear_solve; heat3d on Q3
+# hexahedra, 24^3 cells (73^3 nodes) x 16, float32, ParaDiag defaults
+# (8 frequencies: 8.5 GB of complex64 weights per sweep at the finest
+# level); the small float64 solves (4^3, 4^3 x 4) held on the card against
+# the CPU.  Both take the Jacobi-scaled hex Q3 mass bounds
+# (``q3_mass_bounds(3)``): the JAX package's table has hex degrees 1 and 2
+# only.  The stationary solve's L2 errors against the exact pair are
+# bounded by HEX_Q3["l2_bounds"] (v, zeta): the card's first run gave
+# 2.2e-11 and 9.6e-14 (PERF.md), and the bounds leave a factor of 40-100
+HEX_Q3 = dict(stationary_n=32, heat_n=24, heat_n_t=16, small_n=4,
+              small_n_t=4, heat_max_its=20, l2_bounds=(1e-9, 1e-11))
+HEX_STATIONARY_PARAMETERS = {"linear_solver": "fgmres", "fgmres_restart": 10,
+                             "maximum_iterations": 100,
+                             "relative_tolerance": 1.0e-10,
+                             "absolute_tolerance": 0.0,
+                             "monitor_convergence": False}
+# the small solve: tests/test_solvers3d.py:69's parameters
+HEX_SMALL_PARAMETERS = dict(HEX_STATIONARY_PARAMETERS,
+                            maximum_iterations=300,
+                            relative_tolerance=1.0e-13,
+                            absolute_tolerance=1.0e-13)
+KEYS_HEX_STATIONARY = ("stencil_apply_3d_q3", "cheb_smooth_3d_real_q3")
+KEYS_3D_Q3 = ("stencil_apply_3d_q3", "cheb_smooth_3d_real_q3",
+              "cheb_smooth_3d_complex_q3")
+TOL.update({(k, dt): tol for k, tol32 in (("K6q3", 1e-5), ("K5rq3", 1e-4),
+                                          ("K5cq3", 1e-4), ("K5cnq3", 1e-4))
+            for dt, tol in (("float64", 1e-12), ("float32", tol32))})
+
+
+def stationary_hex_problem(n, degree, dtype, device, bounds,
+                           parameters=HEX_STATIONARY_PARAMETERS):
+    """``tests/test_solvers3d.py:69-121``: hex ``degree`` elements on
+    n^3 cells, forward operator -div grad + I, beta = 1e-3, no boundary
+    conditions, right-hand sides assembled from the exact pair (v = x e^y
+    (1 + z), zeta = sin(pi x) sin(2 pi y) sin(pi z)), so that the discrete
+    solution is the interpolated pair itself.  Returns the problem, its
+    ``linear_solve`` arguments and the exact pair."""
+    from control_tpu_torch import (Control, UnitCubeMesh, FunctionSpace,
+                                   Function, TestFunction,
+                                   SpatialCoordinate, grad, inner, dx, sin,
+                                   exp, pi, assemble)
+    mesh = UnitCubeMesh(n, n, n, dtype=dtype, device=device)
+    X = SpatialCoordinate(mesh)
+    space = FunctionSpace(mesh, "Lagrange", degree)
+    test = TestFunction(space)
+    beta = 1.0e-3
+
+    def fdo(trial, test, u):
+        return inner(grad(trial), grad(test)) * dx + inner(trial, test) * dx
+
+    ctl = Control.Stationary(space, fdo, beta=beta, bcs_v=None)
+    v_ref = Function(space).interpolate(X[0] * exp(X[1]) * (1.0 + X[2]))
+    zeta_ref = Function(space).interpolate(
+        sin(pi * X[0]) * sin(2.0 * pi * X[1]) * sin(pi * X[2]))
+    b_0 = assemble(inner(v_ref, test) * dx
+                   + inner(grad(zeta_ref), grad(test)) * dx
+                   + inner(zeta_ref, test) * dx)
+    b_1 = assemble(inner(grad(v_ref), grad(test)) * dx
+                   + inner(v_ref, test) * dx
+                   - 1.0 / beta * inner(zeta_ref, test) * dx)
+    return ctl, dict(lambda_v_bounds=bounds, v_d=b_0, f=b_1,
+                     solver_parameters=parameters), (v_ref, zeta_ref)
+
+
+def heat3d_q3_problem(n, n_t, dtype, device, mode):
+    """heat3d on Q3 hexahedra: n^3 cells, (3n + 1)^3 nodes."""
+    return heat3d_problem(n, n_t, dtype, device, mode, degree=3)
+
+
+def check_kernels_hex_q3(dev, record):
+    """K6, K5 real and K5 complex at degree 3 (K = 343) against their
+    plain versions on the card at the hex Q3 paths' shapes: K6 one
+    application on the stationary finest level (1 x 97^3, float64) and on
+    heat3d_q3's 15 time steps with shared weights (15 x 73^3, float32);
+    K5 real the 20-step smoothing + r on 1 x 97^3 (float64) and 10 steps +
+    r on 1 x 73^3 (float32); K5 complex heat3d_q3's 8 frequencies with
+    per-frequency weights, 8 steps + r (the frequency V-cycles' smoothing)
+    on 73^3 (complex64) and on 37^3 (complex128, the next level); the
+    narrow K5 complex with bfloat16 planes at 8 x 73^3."""
+    from control_tpu_torch.ops import stencil as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    K = 343
+    g_st = 3 * HEX_Q3["stationary_n"] + 1
+    g_h = 3 * HEX_Q3["heat_n"] + 1
+    nt = HEX_Q3["heat_n_t"] - 1
+    nf = nt // 2 + 1
+    results = {k: [] for k in ("K6q3", "K5rq3", "K5cq3", "K5cnq3")}
+
+    def field(shape, dt):
+        a = torch.randn(shape, generator=gen, dtype=dt.to_real(), device=dev)
+        if dt.is_complex:
+            a = torch.complex(a, torch.randn(shape, generator=gen,
+                                             dtype=dt.to_real(), device=dev))
+        return a
+
+    def real_rows(g, dtype, n_apply, steps):
+        name = str(dtype).split(".")[-1]
+        w, dinv, theta, delta = make_stencil_on_card(gen, 1, (g,) * 3,
+                                                     False, 3, dev, dtype)
+        w, dinv = w[0], dinv[0]
+        x = field((n_apply,) + (g,) * 3, dtype)
+        results["K6q3"].append(check_row(
+            "K6q3", name, x.shape, st.apply_stencil(w, x, 3, nd=3),
+            st._apply_plain(w, x, 3, nd=3),
+            lambda: st.apply_stencil(w, x, 3, nd=3),
+            lambda: st._apply_plain(w, x, 3, nd=3),
+            (nbytes(w, x, x), stencil_flops(K, x, 1)),
+            plain_repeats=PLAIN_REPEATS_3D))
+        b = x[:1]
+        x0 = torch.zeros_like(b)
+        th, de = float(theta[0]), float(delta[0])
+
+        def kern():
+            return st.fused_cheb_smooth(w, dinv, b, x0, steps, th, de, 3,
+                                        want_residual=True, nd=3)
+
+        def plain():
+            return st._cheb_plain(w, dinv, b, x0, steps, th, de, 3,
+                                  want_residual=True, nd=3)
+
+        results["K5rq3"].append(check_row(
+            "K5rq3", name, b.shape, kern(), plain(), kern, plain,
+            (nbytes(w, dinv, b, x0, b, b), cheb_flops(K, b, steps, True)),
+            plain_repeats=PLAIN_REPEATS_3D, steps=steps))
+
+    def complex_rows(g, cdt, narrow):
+        rdt = cdt.to_real()
+        name = str(rdt).split(".")[-1]
+        w, dinv, theta, delta = make_stencil_on_card(gen, nf, (g,) * 3,
+                                                     True, 3, dev, rdt)
+        b = field((nf,) + (g,) * 3, cdt)
+        x0 = field((nf,) + (g,) * 3, cdt)
+        steps = 8
+        work = (nbytes(w, dinv, b, x0, theta, delta, b, b),
+                cheb_flops(K, b, steps, True))
+
+        def kern():
+            return st.fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta,
+                                        3, want_residual=True, nd=3)
+
+        def plain():
+            return st._cheb_plain(w, dinv, b, x0, steps, theta, delta, 3,
+                                  want_residual=True, nd=3)
+
+        results["K5cq3"].append(check_row(
+            "K5cq3", name, b.shape, kern(), plain(), kern, plain, work,
+            plain_repeats=PLAIN_REPEATS_3D, steps=steps))
+        if not narrow:
+            return
+        wd = NARROW_WEIGHTS[name]
+        full_ms = results["K5cq3"][-1]["ms"]
+        wn, dn = st.narrow_planes(w, wd), st.narrow_planes(dinv, wd)
+        del w, dinv
+
+        def nkern():
+            return st.fused_cheb_smooth(wn, dn, b, x0, steps, theta, delta,
+                                        3, want_residual=True,
+                                        weight_dtype=wd, nd=3)
+
+        def nplain():
+            return st._cheb_plain(wn, dn, b, x0, steps, theta, delta, 3,
+                                  want_residual=True, weight_dtype=wd, nd=3)
+
+        results["K5cnq3"].append(check_row(
+            "K5cnq3", name, b.shape, nkern(), nplain(), nkern, nplain,
+            (nbytes(wn, dn, b, x0, theta, delta, b, b),
+             cheb_flops(K, b, steps, True)),
+            plain_repeats=PLAIN_REPEATS_3D, steps=steps, degree=3,
+            weight_dtype=wd, full_precision_ms=full_ms,
+            full_precision_bound_ms=bound(*work, name)[0]))
+
+    # the stationary path in float64 (first: the rows' numbers in the
+    # kernels line), heat3d_q3's in float32
+    real_rows(g_st, torch.float64, 1, 20)
+    real_rows(g_h, torch.float32, nt, 10)
+    complex_rows(g_h, torch.complex64, True)
+    complex_rows((g_h + 1) // 2, torch.complex128, False)
+    torch.cuda.empty_cache()
+    record["kernel_checks_hex_q3"] = results
+    report(results)
+    return results
+
+
+def hex_q3_phase(dev, record, card):
+    """The small float64 solves on the card against the CPU, then
+    ``stationary_hex_q3`` at 32^3 (float64, FGMRES(10), rtol 1e-10, budget
+    100, its L2 errors bounded) and ``heat3d_q3`` at 24^3 x 16 (float32,
+    ParaDiag, GMRES(10), rtol 1e-6, at most 20 iterations), each timed
+    with its launches; returns their rows."""
+    bounds = q3_mass_bounds(3)
+    record["hex_q3_mass_bounds"] = bounds
+    hq = HEX_Q3
+    n, nt = hq["small_n"], hq["small_n_t"]
+    check_small_stationary(dev, record, (
+        (f"hex q3 {n}^3",
+         lambda d: stationary_hex_problem(
+             n, 3, torch.float64, d, bounds, HEX_SMALL_PARAMETERS)[:2],
+         True),), key="small_f64_stationary_hex_q3")
+    check_small_f64(dev, record, "small_f64_heat3d_q3", (
+        (f"q3 {n}^3x{nt}", heat3d_q3_problem, "paradiag", n, nt, bounds),))
+    rows = {}
+    ns = hq["stationary_n"]
+    rows["stationary"] = row = timed_stationary(
+        dev, record, card, "stationary_hex_q3",
+        f"stationary_hex_q3_{ns}cubed_kkt_solve_f64_cuda",
+        lambda d: stationary_hex_problem(ns, 3, torch.float64, d, bounds),
+        HEX_STATIONARY_PARAMETERS["maximum_iterations"], KEYS_HEX_STATIONARY,
+        "float64")
+    if not (row["l2_error_v"] < hq["l2_bounds"][0]
+            and row["l2_error_zeta"] < hq["l2_bounds"][1]):
+        raise AssertionError(f"stationary_hex_q3 misses the exact pair: "
+                             f"{row}")
+    torch.cuda.empty_cache()
+    nh = hq["heat_n"]
+    rows["heat"] = timed_solve(
+        dev, record, card, "heat3d_q3",
+        f"heat3d_q3_{nh}cubed_nt{hq['heat_n_t']}_kkt_solve_cuda",
+        heat3d_q3_problem, (nh, hq["heat_n_t"]), bounds, hq["heat_max_its"],
+        KEYS_3D_Q3)
     return rows
 
 
@@ -2042,6 +2288,11 @@ def main():
     lap("kernel_checks_high_degree")
     stat = stationary_phase(dev, record, card)
     lap("stationary")
+    # hex Q3: K5 and K6 at degree 3, then the two solves
+    hexk = check_kernels_hex_q3(dev, record)
+    lap("kernel_checks_hex_q3")
+    hexq = hex_q3_phase(dev, record, card)
+    lap("hex_q3")
     print(f"phase seconds {json.dumps(marks)}", flush=True)
 
     def row(kname, source, replaces, key, launches, checks_rows,
@@ -2069,6 +2320,7 @@ def main():
     m3l = mg_n["multigrid_3d"]["launches"]
     bel, h3bel = be["launches"], h3be["launches"]
     q3l = stat["poisson_q3"]["launches"]
+    hsl, hhl = hexq["stationary"]["launches"], hexq["heat"]["launches"]
     kernels_line = {"kernels": [
         row("K1 stencil_apply", apply_src, "control_tpu/ops/stencil.py:206",
             "stencil_apply", fl, checks["K1"]),
@@ -2147,6 +2399,18 @@ def main():
         row("K3 cheb_smooth (complex, degree 3, bf16 weights)", narrow_src,
             "control_tpu/ops/stencil.py:728", "cheb_smooth_complex_q3_bf16",
             q3l, high["K3nq3"]),
+        row("K6 stencil_apply 3-D (degree 3)", apply_src,
+            "control_tpu/ops/stencil.py:255", "stencil_apply_3d_q3", hsl,
+            hexk["K6q3"], dtype="float64"),
+        row("K5 cheb_smooth 3-D (real, degree 3)", cheb_src,
+            "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real_q3", hsl,
+            hexk["K5rq3"], dtype="float64"),
+        row("K5 cheb_smooth 3-D (complex, degree 3)", cheb_src,
+            "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex_q3",
+            hhl, hexk["K5cq3"]),
+        row("K5 cheb_smooth 3-D (complex, degree 3, bf16 weights)",
+            narrow_src, "control_tpu/ops/stencil.py:1090",
+            "cheb_smooth_3d_complex_q3_bf16", hhl, hexk["K5cnq3"]),
     ]}
     record["kernels"] = kernels_line["kernels"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

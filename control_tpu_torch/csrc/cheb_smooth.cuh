@@ -6,9 +6,9 @@
 // TPU kernel, K2), control_tpu/ops/stencil.py:_fused_cheb_complex (the
 // re/im-plane TPU kernel, K3) and control_tpu/ops/stencil.py:_fused_cheb_nd3
 // (the whole-volume 3-D TPU kernel in C x C coupled real form, K5, here for
-// C = 1 real and C = 2 complex, degree 1 (K = 27) and degree 2 (K = 125);
-// C = dim = 3 is cheb_smooth_vector.cu).  All compute, per batch entry i with
-// sigma = theta_i / delta_i:
+// C = 1 real and C = 2 complex, degree 1 (K = 27), 2 (K = 125) and 3
+// (K = 343); C = dim = 3 is cheb_smooth_vector.cu).  All compute, per batch
+// entry i with sigma = theta_i / delta_i:
 //
 //   step 0:   r = b - A x0;  p = (r * dinv) / theta;  x = x0 + p
 //   step s:   r = b - A x;   rho' = 1 / (2 sigma - rho)
@@ -41,10 +41,13 @@
 //
 // 2-D grids take degrees 1-4 (K = 9, 25, 49, 81: Q1-Q4, and P1/P2
 // triangles in their 3 x 3 and 5 x 5 footprints), as the TPU kernels K2
-// and K3 take any degree; 3-D grids degrees 1 and 2.  A thread reads its
-// neighbours straight from device memory (no shared tile), so a wider
-// stencil only lengthens the unrolled offset loop and the rows of
-// neighbours that adjacent blocks read again from L1/L2.
+// and K3 take any degree; 3-D grids degrees 1-3 (K = 27, 125, 343: hex
+// Q1-Q3).  A thread reads its neighbours straight from device memory (no
+// shared tile), so a wider stencil only lengthens the unrolled offset loop
+// and the rows of neighbours that adjacent blocks read again from L1/L2.
+// Every offset into the weights and fields is a size_t: at degree 3 a
+// batch of per-frequency complex weights passes 2^31 values (8 x 343 x
+// 73^3 complex weights are 2.1e9 reals).
 //
 // Complex fields are read as interleaved float2/double2 straight from the
 // storage of torch's complex tensors (K5 builds no [[re, -im], [im, re]]
@@ -208,6 +211,10 @@ int dispatch(const void* w, long long w_bstride, const void* dinv,
                                     ny, nx, steps, stream);
     if (nd == 3 && degree == 2)
         return run<3, 2, V, Wt>(wv, w_bstride, dv, d_bstride, bv, xv,
+                                    th, de, th_stride, xo, xt, pv, rv, n, nz,
+                                    ny, nx, steps, stream);
+    if (nd == 3 && degree == 3)
+        return run<3, 3, V, Wt>(wv, w_bstride, dv, d_bstride, bv, xv,
                                     th, de, th_stride, xo, xt, pv, rv, n, nz,
                                     ny, nx, steps, stream);
     return (int)cudaErrorInvalidValue;

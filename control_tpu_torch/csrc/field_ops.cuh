@@ -123,14 +123,19 @@ __device__ __forceinline__ V stencil_at(const Wt* __restrict__ w,
                                         int nx) {
     // ND = 2 compiles to the plain 2-D stencil: one plane, no z terms
     constexpr int DZ = ND == 3 ? D : 0;
+    // the dz and dy loops unroll fully up to K = 125; at K = 343 (3-D,
+    // degree 3) only the dx loop does: 343 unrolled terms in each of the
+    // 32 kernels that instantiate it took the build from 45 s to 71 s,
+    // and the kernels stream their weights from device memory either way
+    constexpr int UNROLL = ND == 3 && D >= 3 ? 1 : 2 * D + 1;
     const size_t vol = (size_t)(ND == 3 ? nz : 1) * ny * nx;
     const size_t node = ((size_t)(ND == 3 ? iz : 0) * ny + iy) * nx + ix;
     V acc = f_zero(V());
     int k = 0;
-#pragma unroll
+#pragma unroll UNROLL
     for (int dz = -DZ; dz <= DZ; ++dz) {
         const int z = (ND == 3 ? iz : 0) + dz;
-#pragma unroll
+#pragma unroll UNROLL
         for (int dy = -D; dy <= D; ++dy) {
             const int y = iy + dy;
 #pragma unroll

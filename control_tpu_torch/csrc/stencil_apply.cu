@@ -7,10 +7,10 @@
 // (K = 9, 25, 49, 81 here: degrees 1-4).  K6
 // replaces control_tpu/ops/stencil.py:_pallas_kernel_3d (via
 // _apply_3d_pallas), which keeps the padded source volume in VMEM and
-// streams the K = 27 (degree 2: 125) weight planes of one output z-plane per
-// grid step, from weights reshuffled z-major for its BlockSpec.  Here the
-// weights are read as (nw, K, nz, ny, nx) directly: no reshuffle, no padded
-// copy.
+// streams the K = 27 (degree 2: 125, degree 3: 343) weight planes of one
+// output z-plane per grid step, from weights reshuffled z-major for its
+// BlockSpec.  Here the weights are read as (nw, K, nz, ny, nx) directly: no
+// reshuffle, no padded copy.
 //
 // Bound on the H100: device-memory bandwidth.  Each output node reads its K
 // weights once (no reuse within a call) plus K neighbouring sources and
@@ -72,6 +72,8 @@ int launch_apply(const void* w, long long w_bstride, const void* x, void* y,
         stencil_apply_kernel<3, 1, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
     } else if (nd == 3 && degree == 2) {
         stencil_apply_kernel<3, 2, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
+    } else if (nd == 3 && degree == 3) {
+        stencil_apply_kernel<3, 3, V><<<grid, block, 0, stream>>>(wv, w_bstride, xv, yv, nz, ny, nx);
     } else {
         return (int)cudaErrorInvalidValue;
     }

@@ -132,12 +132,17 @@ def picard_operator(form):
     return assemble(form)
 
 
-def refuse_refinement(solver_parameters):
-    """Raise ``NotImplementedError`` when ``solver_parameters`` ask for
-    the JAX package's mixed-precision iterative refinement
-    (``iterative_refinement``, ``refinement_inner_tolerance``), which is
-    not ported."""
-    if solver_parameters is not None and (
-            "iterative_refinement" in solver_parameters
-            or "refinement_inner_tolerance" in solver_parameters):
+def strip_refinement(solver_parameters):
+    """``solver_parameters`` without the JAX package's refinement keys
+    (``iterative_refinement``, ``refinement_inner_tolerance``).  As there,
+    0 (or no) refinement steps is the plain solve and the inner tolerance
+    is then ignored; one or more steps of its mixed-precision iterative
+    refinement raise ``NotImplementedError`` (not ported)."""
+    if solver_parameters is None:
+        return None
+    sp = dict(solver_parameters)
+    steps = int(sp.pop("iterative_refinement", 0) or 0)
+    sp.pop("refinement_inner_tolerance", None)
+    if steps:
         raise NotImplementedError("iterative refinement is not ported yet")
+    return sp

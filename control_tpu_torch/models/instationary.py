@@ -60,7 +60,7 @@ from ..solvers.block import (MultiBlockSystem, BlockAction,
                              finalize_solve_info)
 from ..solvers.multigrid import MGConfig, index_params, flip_params
 from .common import (BlockSolver, mass_solver, regularized_stiffness,
-                     zero_rows, bc_lift_function, refuse_refinement,
+                     zero_rows, bc_lift_function, strip_refinement,
                      tensor_token)
 
 
@@ -1181,7 +1181,7 @@ class Instationary:
                 "user preconditioners for backward Euler are not ported yet")
         if plots:
             raise NotImplementedError("plots are not ported yet")
-        refuse_refinement(solver_parameters)
+        solver_parameters = strip_refinement(solver_parameters)
         with full_precision():
             info = self._linear_solve(P, solver_parameters, Multigrid,
                                       lambda_v_bounds, v_d, f, print_error)
@@ -1369,7 +1369,7 @@ class Instationary:
                 "not ported yet")
         if plots:
             raise NotImplementedError("plots are not ported yet")
-        refuse_refinement(solver_parameters)
+        solver_parameters = strip_refinement(solver_parameters)
         if getattr(self, "_divfree_initial", False):
             raise NotImplementedError(
                 "the divergence-free projection of the initial state is "

@@ -35,7 +35,7 @@ from ..ops.stencil import StencilOp, node_stencil
 from ..solvers.block import (MultiBlockSystem, DirichletBCNullspace,
                              NoneNullspace, finalize_solve_info)
 from .common import (BlockSolver, mass_solver, zero_rows, picard_operator,
-                     bc_lift_function, refuse_refinement, tensor_token)
+                     bc_lift_function, strip_refinement, tensor_token)
 
 
 def _as_bcs_tuple(bcs):
@@ -284,7 +284,7 @@ class Stationary:
         solve's ``SolveInfo`` (also ``self.last_solve_info``)."""
         if plots:
             raise NotImplementedError("plots are not ported yet")
-        refuse_refinement(solver_parameters)
+        solver_parameters = strip_refinement(solver_parameters)
         with full_precision():
             info = self._linear_solve(P, solver_parameters, Multigrid,
                                       lambda_v_bounds, v_d, f, print_error)

@@ -25,9 +25,9 @@ operations of the preconditioner on the card:
   vector fields: the velocity mass solves and V-cycles of the
   incompressible problems.
 
-The 2-D kernels take degrees 1-4 (K = 9, 25, 49, 81), the 3-D ones degree
-1 (K = 27) and degree 2 (K = 125); other degrees on a CUDA tensor raise
-``NotImplementedError``.
+The 2-D kernels take degrees 1-4 (K = 9, 25, 49, 81), the scalar 3-D ones
+degrees 1-3 (K = 27, 125, 343: hex Q1-Q3) and K5v degrees 1 and 2; other
+degrees on a CUDA tensor raise ``NotImplementedError``.
 K2, K3 and K5 (real and complex) also read weight and diagonal planes
 stored narrower than the fields (``weight_dtype``: bf16 or f16, or f32
 under float64 fields; complex planes as (re, im) pairs,
@@ -51,19 +51,30 @@ import torch
 
 from . import kernels
 
+
+def _key(base, degree, nd):
+    """The launch-count key of a scalar kernel (``base`` its 2-D name)
+    at ``degree``: ``_3d`` in 3-D, ``_q<degree>`` from degree 2 in 3-D and
+    from degree 3 in 2-D."""
+    if nd == 3:
+        return base.replace("stencil_apply", "stencil_apply_3d").replace(
+            "cheb_smooth", "cheb_smooth_3d") + (
+                f"_q{degree}" if degree > 1 else "")
+    return base + (f"_q{degree}" if degree > 2 else "")
+
+
+# the degrees with a CUDA kernel, per grid dimension
+CUDA_DEGREES = {2: (1, 2, 3, 4), 3: (1, 2, 3)}
 # kernel launches per wrapper (one per call that reaches the card): K1,
 # K2, K3 on 2-D grids at degrees 1 and 2 and (the ``_q3``, ``_q4`` keys)
-# 3 and 4; K4 on 2-D vector fields; K6 and K5 (real, complex) on 3-D
-# grids, at degree 1 and (the ``_q2`` keys) degree 2; K5v on 3-D vector
+# 3 and 4; K6 and K5 (real, complex) on 3-D grids at degree 1 and (the
+# ``_q2``, ``_q3`` keys) 2 and 3; K4 and K5v on 2-D and 3-D vector
 # fields; the narrow-weight variants below
-_KERNELS_2D = tuple(f"{k}{q}" for q in ("", "_q3", "_q4")
-                    for k in ("stencil_apply", "cheb_smooth_real",
-                              "cheb_smooth_complex"))
 launch_counts = dict.fromkeys(
-    _KERNELS_2D + ("cheb_smooth_vector", "stencil_apply_3d",
-                   "cheb_smooth_3d_real", "cheb_smooth_3d_complex",
-                   "stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
-                   "cheb_smooth_3d_complex_q2", "cheb_smooth_3d_vector"), 0)
+    [_key(k, d, nd) for nd, degrees in CUDA_DEGREES.items()
+     for d in degrees for k in ("stencil_apply", "cheb_smooth_real",
+                                "cheb_smooth_complex")]
+    + ["cheb_smooth_vector", "cheb_smooth_3d_vector"], 0)
 # narrow weight planes (``weight_dtype``): one key per scalar smoother
 # and storage, e.g. "cheb_smooth_3d_complex_q2_bf16"
 _WEIGHT_TAGS = {torch.bfloat16: "bf16", torch.float16: "f16",
@@ -73,8 +84,6 @@ launch_counts.update({
     for k in launch_counts if k.startswith("cheb_smooth")
     and not k.endswith("vector")
     for tag in _WEIGHT_TAGS.values()})
-# the degrees with a CUDA kernel, per grid dimension
-CUDA_DEGREES = {2: (1, 2, 3, 4), 3: (1, 2)}
 
 # the vector apply forms its products one leading window offset at a time
 # when all K of them at once would take more than this (the 3-D Q2 weight
@@ -209,17 +218,6 @@ def _is_vector_stencil(w, nd=2):
     return w.dim() >= nd + 3
 
 
-def _key(base, degree, nd):
-    """The launch-count key of a scalar kernel (``base`` its 2-D name)
-    at ``degree``: ``_3d`` in 3-D, ``_q<degree>`` from degree 2 in 3-D and
-    from degree 3 in 2-D."""
-    if nd == 3:
-        return base.replace("stencil_apply", "stencil_apply_3d").replace(
-            "cheb_smooth", "cheb_smooth_3d") + (
-                f"_q{degree}" if degree > 1 else "")
-    return base + (f"_q{degree}" if degree > 2 else "")
-
-
 def _apply_plain(w, x, degree, nd=2):
     """Plain PyTorch K1/K6: zero-pad x, then K shifted multiply-adds (the
     reference's ``_apply_xla``; dimension-generic).  A vector stencil
@@ -275,8 +273,8 @@ def _apply_plain(w, x, degree, nd=2):
 
 def _cuda_grid(wshape, x, degree, nd, what):
     """Checks shared by the CUDA wrappers: a scalar stencil of a degree
-    the kernels are built for (``CUDA_DEGREES``: 1-4 in 2-D, 1 and 2 in
-    3-D), weights of shape ``wshape`` (K, *grid) or (nw, K, *grid) on the
+    the kernels are built for (``CUDA_DEGREES``: 1-4 in 2-D, 1-3 in 3-D),
+    weights of shape ``wshape`` (K, *grid) or (nw, K, *grid) on the
     grid of x.  Returns the grid shape."""
     if nd not in (2, 3) or len(wshape) >= nd + 3:
         raise NotImplementedError(

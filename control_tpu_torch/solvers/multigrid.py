@@ -273,8 +273,16 @@ class Transfer:
 # ---------------------------------------------------------------------------
 
 def _dense_inv(Ad):
-    """Dense inverse (real or complex; leading batch axes)."""
-    return torch.linalg.inv(Ad)
+    """Dense inverse (real or complex; leading batch axes).  On the CPU
+    one matrix at a time: torch's batched CPU LU factors the batch entries
+    in parallel threads, and for matrices of a few hundred rows and more
+    (a hex Q3 coarse level has 2197) it has returned invalid pivots or
+    hung (torch 2.13, MKL)."""
+    if Ad.device.type != "cpu" or Ad.dim() == 2:
+        return torch.linalg.inv(Ad)
+    m = Ad.shape[-1]
+    inv = [torch.linalg.inv(a) for a in Ad.reshape(-1, m, m)]
+    return torch.stack(inv).reshape(Ad.shape)
 
 
 class MGConfig:

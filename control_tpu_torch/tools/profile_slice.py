@@ -34,7 +34,10 @@ in turns within one call on one card):
     python3 control_tpu_torch/tools/profile_slice.py profile poisson
         the stationary ``poisson`` solve (Q1 256^2, f32; ``poisson_large``
         at 2048^2; ``poisson_q3``, the manufactured Q3 problem at 256^2 in
-        f64), traced whole, with K1's and K2's device time (2-D, real).
+        f64), traced whole, with K1's and K2's device time (2-D, real);
+        ``profile stationary_hex_q3`` (the exact pair on hex Q3 32^3,
+        f64) and ``profile heat3d_q3`` (heat3d on hex Q3 24^3 x 16, f32,
+        ParaDiag), with K6's and K5 real's device time at degree 3.
 
     python3 <this checkout>/control_tpu_torch/tools/profile_slice.py vector
         K4 and K5v at the shapes of their paths (the velocity mass solves,
@@ -85,6 +88,7 @@ JAX.
 import bisect
 import json
 import os
+import re
 import sys
 import time
 
@@ -112,7 +116,12 @@ SLICES = {
     "be_scan": ((256, 64), (0.25, 2.25), "heat_be_problem", "scan",
                 SOLVER_PARAMETERS, "float64"),
     "heat3d_be": ((64, 16), (0.125, 3.375), "heat3d_be_problem", "paradiag",
-                  BE_PARAMETERS, "float32")}
+                  BE_PARAMETERS, "float32"),
+    # hex Q3 24^3 x 16 with the Jacobi-scaled Q3 mass bounds, computed
+    "heat3d_q3": ((chip_smoke.HEX_Q3["heat_n"],
+                   chip_smoke.HEX_Q3["heat_n_t"]),
+                  lambda: chip_smoke.q3_mass_bounds(3), "heat3d_q3_problem",
+                  "paradiag", SOLVER_PARAMETERS, "float32")}
 # the Crank-Nicolson ParaDiag slices with their weight planes stored narrow
 NARROW = {f"{k}_bf16": (k, "bfloat16")
           for k in ("flagship", "heat3d", "heat3d_q2")}
@@ -125,7 +134,10 @@ STATIONARY_SLICES = {
         chip_smoke.STATIONARY["large_n"], torch.float32, dev),
     "poisson_q3": lambda dev: chip_smoke.poisson_q3_problem(
         chip_smoke.STATIONARY["q3_n"], torch.float64, dev,
-        chip_smoke.q3_mass_bounds())[:2]}
+        chip_smoke.q3_mass_bounds())[:2],
+    "stationary_hex_q3": lambda dev: chip_smoke.stationary_hex_problem(
+        chip_smoke.HEX_Q3["stationary_n"], 3, torch.float64, dev,
+        chip_smoke.q3_mass_bounds(3))[:2]}
 STOKES_SLICES = {
     "stokes": ((chip_smoke.STOKES["n"], chip_smoke.STOKES["n_t"]),
                "stokes_problem", chip_smoke.LAMBDA_STOKES),
@@ -161,6 +173,8 @@ def problem(name):
         return ctl, solve, lambda: solve(window)
     name, weight_dtype = NARROW.get(name, (name, None))
     (n, n_t), bounds, maker, mode, parameters, dtype = SLICES[name]
+    if callable(bounds):
+        bounds = bounds()
     ctl = getattr(chip_smoke, maker)(n, n_t, getattr(torch, dtype), dev,
                                      mode)
     if weight_dtype is not None:
@@ -308,10 +322,11 @@ def profile(name):
                     for k in ("cheb_step_kernel", "residual_kernel"))
                 and any(f", {v}," in e.name for v in ("float2", "double2")))
 
-    def real_2d(e, names):
-        return (any(f"{k}<2," in e.name for k in names)
-                and any(f", {v}," in e.name or f", {v}>" in e.name
-                        for v in ("float", "double")))
+    def real(e, names, nd=2):
+        # the field type is the third template argument (the complex
+        # kernels' last one is their real type)
+        return any(re.search(rf"{k}<{nd}, \d+, (float|double)[,>]", e.name)
+                   for k in names)
 
     device_ms = ms(kernels)
     k3_ms = ms(e for e in kernels if complex_smoother(e, 2))
@@ -331,9 +346,13 @@ def profile(name):
                                 if any(k in e.name for k in K5V_NAMES)),
             "mg_transfer_device_ms": ms(e for e in kernels if in_range(e)),
             "k1_device_ms": ms(e for e in kernels
-                               if real_2d(e, ("stencil_apply_kernel",))),
-            "k2_device_ms": ms(e for e in kernels if real_2d(
+                               if real(e, ("stencil_apply_kernel",))),
+            "k2_device_ms": ms(e for e in kernels if real(
                 e, ("cheb_step_kernel", "residual_kernel"))),
+            "k6_device_ms": ms(e for e in kernels
+                               if real(e, ("stencil_apply_kernel",), 3)),
+            "k5_real_device_ms": ms(e for e in kernels if real(
+                e, ("cheb_step_kernel", "residual_kernel"), 3)),
             "k3_device_ms": k3_ms, "k5_complex_device_ms": k5c_ms,
             "k3_share_of_device": k3_ms / device_ms,
             "k5_complex_share_of_device": k5c_ms / device_ms,
@@ -464,6 +483,8 @@ def history(name, dtype, n, n_t, budget, device="cuda"):
     else:
         base, weight_dtype = NARROW.get(name, (name, None))
         _, bounds, maker, mode, parameters, _ = SLICES[base]
+        if callable(bounds):
+            bounds = bounds()
         ctl = getattr(chip_smoke, maker)(n, n_t, getattr(torch, dtype), dev,
                                          mode)
         if weight_dtype is not None:

@@ -268,12 +268,12 @@ def test_cpu_tensors_never_touch_the_kernels_3d(monkeypatch):
 
 
 def test_unported_3d_cuda_paths_raise():
-    """The CUDA wrappers refuse what no kernel covers (degree 3 in 3-D,
+    """The CUDA wrappers refuse what no kernel covers (degree 4 in 3-D,
     vector stencils, complex 3-D application) before any launch; there
     is no plain fallback on the card."""
     x = torch.zeros(2, 5, 5, 5, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
-        ts._apply_cuda(torch.zeros(343, 5, 5, 5, dtype=torch.float64), x, 3,
+        ts._apply_cuda(torch.zeros(729, 5, 5, 5, dtype=torch.float64), x, 4,
                        3)
     with pytest.raises(NotImplementedError):
         ts._cheb_cuda(torch.zeros(27, 5, 5, 5, 3, 3, dtype=torch.float64),

@@ -616,10 +616,10 @@ def test_refusals(case):
         call()
 
 
-@pytest.mark.parametrize("nd,degree", [(2, 5), (3, 3)])
+@pytest.mark.parametrize("nd,degree", [(2, 5), (3, 4)])
 def test_cuda_wrappers_refuse_degrees_without_a_kernel(nd, degree):
     """The CUDA wrappers' checks (run before any library is loaded) refuse
-    2-D degree 5 and 3-D degree 3: no quiet plain version."""
+    2-D degree 5 and 3-D degree 4: no quiet plain version."""
     grid = (5,) * nd
     K = (2 * degree + 1) ** nd
     w = torch.ones((K,) + grid, dtype=torch.float64)
