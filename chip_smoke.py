@@ -25,13 +25,27 @@ which raises (and the script exits non-zero) on failure:
    (real; complex at degree 1 and 2) at their paths' finest shapes, with
    the planes stored in bfloat16 under float32 fields and in float32
    under float64 ones (``weight_dtype``), the full-precision kernel's time
+   beside each; then the ParaDiag smoother on stencil pairs
+   (``fused_cheb_smooth_pair``: A_k = W_F + mu_k W_S, one real pair for
+   all frequencies) against its plain twin at the flagship's (32 x 257^2,
+   3 steps + r), heat3d's and heat3d_q2's (8 x 65^3, degree 1 and 2) and
+   heat3d_q3's (8 x 73^3, degree 3) shapes, 8 steps + r, in complex64,
+   and in complex128 on 257^2 and the next coarser 3-D levels, with the
+   per-frequency kernel's time on the same operator's formed planes
    beside each;
 4. the 2-D slice: a small float64 solve on the card against the same solve
    on the CPU (plain versions), then the flagship heat-control KKT solve
    (Q1 256^2 x 64, Crank-Nicolson, ParaDiag Schur sweeps, GMRES(10), rtol
    1e-6, float32) through ``Control.Instationary(...).linear_solve``: solved
    once, then timed; it must converge below 1e-6 relative residual in at
-   most 12 iterations with K1-K3 launched during the timed solve; then the
+   most 12 iterations with K1, K2 and the pair smoother launched during
+   the timed solve and no per-frequency K3 (its frequency hierarchies
+   are stencil pairs); then the same solve from its pc state with
+   per-frequency planes (the layout of a state carried from the JAX
+   package, and the path's smoothing before the pair): the pair's count
+   within one, K3 launched and no pair smoother, timed in the same call;
+   every full-precision ParaDiag solve below does the same, with its
+   peak device memory and pc state bytes beside each; then the
    default ``scan`` sweeps at the same size, once; then the same ParaDiag
    solve with the frequency V-cycles' weight planes in bfloat16
    (``set_schur_sweep(..., weight_dtype="bfloat16")``; after small
@@ -46,8 +60,9 @@ which raises (and the script exits non-zero) on failure:
    ParaDiag with its default settings, GMRES(10), rtol 1e-6, float32):
    small float64 solves (ParaDiag and scan, 8^3 x 8) on the card against
    the CPU, then the full-size solve, once and then timed; it must converge
-   below 1e-6 in at most 10 iterations with K5 (real, complex) and K6
-   launched during the timed solve; then the ``scan`` sweeps once; then
+   below 1e-6 in at most 10 iterations with K5 real, the pair smoother
+   and K6 launched during the timed solve (then from the per-frequency
+   state, K5 complex); then the ``scan`` sweeps once; then
    the same with bfloat16 weight planes (after a small float64 solve on
    the card against the CPU), which stalls at this width (``ROADMAP.md``
    Queue 3): a measurement, not a check of convergence, with the narrow
@@ -81,8 +96,9 @@ which raises (and the script exits non-zero) on failure:
    65^3 nodes, x 16, float32, ParaDiag defaults): small float64 solves
    (ParaDiag and scan, 4^3 x 4) on the card against the CPU, then the
    full-size solve, once and then timed; it must converge below 1e-6 within
-   the solver's budget with K5 (real, complex) and K6 at degree 2 launched
-   during the timed solve; then the ``scan`` sweeps once; then the
+   the solver's budget with K5 real, the pair smoother and K6 at degree 2
+   launched during the timed solve (then from the per-frequency state, K5
+   complex at degree 2); then the ``scan`` sweeps once; then the
    ParaDiag solve with bfloat16 weight planes, a measurement like
    heat3d's;
 9. backward Euler (``CN=False``, epsilon = 1e-3: the Sigma-rescaled pc,
@@ -92,16 +108,17 @@ which raises (and the script exits non-zero) on failure:
    iterations, histories within 1e-10 of the initial residual); the
    flagship ParaDiag in float32
    with ``bench.py``'s BE recipe (``BENCH_CN=0``: GMRES(30), budget 100),
-   once and then timed, which must converge below 1e-6 with K1-K3
-   launched, and the same solve at GMRES(10), ungated, its count printed;
+   once and then timed, which must converge below 1e-6 with K1, K2 and
+   the pair smoother launched (then from the per-frequency state, K3),
+   and the same solve at GMRES(10), ungated, its count printed;
    the flagship in float64 with the scan sweeps and the default 20 mass
    steps (``tools/tpu_results/be_parity.json``'s reference recipe), which
    must converge, and the record's own Krylov iteration (on the
    untransformed unknowns: 16 iterations on a CPU) on the same pc, which
    must converge in 15-17 iterations; heat3d
    (64^3 x 16, float32, ParaDiag defaults, GMRES(30), budget 100), once
-   and then timed, which must converge below 1e-6 with K5 (real,
-   complex) and K6 launched; the kernel rows K2 and K5 real at batch one
+   and then timed, which must converge below 1e-6 with K5 real, the
+   pair smoother and K6 launched; the kernel rows K2 and K5 real at batch one
    (the edge rows' V-cycles) and K3 at the interior's 32 frequencies;
 10. stationary control (``Control.Stationary(...).linear_solve``): K1,
    K2 and K3 at degree 3 (K = 49) and 4 (K = 81) against their plain
@@ -132,7 +149,8 @@ which raises (and the script exits non-zero) on failure:
    iterations with K6 and K5 real at degree 3 launched and meet the
    exact pair in L2; ``heat3d_q3``, heat3d on 24^3 Q3 cells (73^3 nodes)
    x 16, float32, ParaDiag, which must converge below 1e-6 within 20
-   iterations with K6 and K5 (real, complex) at degree 3 launched; both
+   iterations with K6, K5 real and the pair smoother at degree 3 launched
+   (then from the per-frequency state, K5 complex at degree 3); both
    take the Jacobi-scaled hex Q3 mass bounds computed on 2^3 cells;
 12. prints ``{"kernels": [...]}``, a JSON line of each slice's numbers,
    and last ``{"ok": true, "device": {...}}``.
@@ -143,6 +161,7 @@ ptxas register and spill report to ``smoke_out/ptxas.txt``.
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -398,12 +417,18 @@ def report(results):
                 floor = (f", weights {r['weight_dtype']}; full-precision "
                          f"kernel {r['full_precision_ms']:.4f} ms, bound "
                          f"{r['full_precision_bound_ms']:.4f} ms")
+            if "per_frequency_ms" in r:
+                floor = (f"; per-frequency kernel on the formed planes "
+                         f"{r['per_frequency_ms']:.4f} ms, bound "
+                         f"{r['per_frequency_bound_ms']:.4f} ms, rel err "
+                         f"{r['per_frequency_max_rel_err']:.3e}")
             print(f"{kname} {r['dtype']} {r['shape']}: rel err "
                   f"{r['max_rel_err']:.3e} (tol {r['tol']:.0e}), kernel "
                   f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
                   f"{r['bound_ms']:.4f} ms ({r['bound_by']}){floor}",
                   flush=True)
-            if not r["max_rel_err"] <= r["tol"]:
+            if not (r["max_rel_err"] <= r["tol"]
+                    and r.get("per_frequency_max_rel_err", 0.0) <= r["tol"]):
                 raise AssertionError(f"{kname} disagrees with its plain "
                                      f"version: {r}")
 
@@ -728,10 +753,12 @@ LAMBDA_2D = (0.25, 2.25)
 LAMBDA_3D = (0.125, 3.375)
 LAMBDA_STOKES = dict(lambda_v_bounds=(0.25, 1.5625),
                      lambda_p_bounds=(0.25, 2.25))
-KEYS_2D = ("stencil_apply", "cheb_smooth_real", "cheb_smooth_complex")
+# the ParaDiag frequency V-cycles smooth on their stencil pairs
+# (``fused_cheb_smooth_pair``); the per-frequency complex kernels run on
+# a pc state carried with per-frequency planes (``carried_solve``)
+KEYS_2D = ("stencil_apply", "cheb_smooth_real", "cheb_smooth_pair_2d")
 KEYS_STOKES = ("cheb_smooth_vector", "cheb_smooth_real")
-KEYS_3D = ("stencil_apply_3d", "cheb_smooth_3d_real",
-           "cheb_smooth_3d_complex")
+KEYS_3D = ("stencil_apply_3d", "cheb_smooth_3d_real", "cheb_smooth_pair_3d")
 LAMBDA_STOKES3D = dict(lambda_v_bounds=(0.1, 2.3),
                        lambda_p_bounds=(0.1, 3.4))
 # the velocity is Q2 (K5v); the pressure's K_p V-cycle and M_p solve are
@@ -739,7 +766,7 @@ LAMBDA_STOKES3D = dict(lambda_v_bounds=(0.1, 2.3),
 KEYS_STOKES3D = ("cheb_smooth_3d_vector", "cheb_smooth_3d_real")
 LAMBDA_Q2 = (0.1, 2.3)
 KEYS_3D_Q2 = ("stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
-              "cheb_smooth_3d_complex_q2")
+              "cheb_smooth_pair_3d_q2")
 # with bfloat16 weight planes the ParaDiag V-cycles run the narrow complex
 # kernels; the mass solves and applications stay full precision
 KEYS_2D_BF16 = ("stencil_apply", "cheb_smooth_real",
@@ -1014,6 +1041,9 @@ def rounded_planes_solve(dev, build, size, bounds, narrow_ctl):
     solve(ctl, bounds, gated=False, budget=1)   # builds and caches the pc
     (state,) = ctl._pc_state_cache.values()
     (narrow,) = narrow_ctl._pc_state_cache.values()
+    # the full pc's stencil pairs as per-frequency planes, the narrow
+    # pc's layout
+    per_frequency_state(state)
     for sweep in ("fwd", "bwd"):
         full, stored = state[sweep]["params"], narrow[sweep]["params"]
         for k in ("Ws", "dinvs"):
@@ -1024,7 +1054,7 @@ def rounded_planes_solve(dev, build, size, bounds, narrow_ctl):
 
 def timed_solve(dev, record, card, key, metric, build, size, bounds,
                 max_its, keys, full_row=None, gated=True, full_build=None,
-                parameters=SOLVER_PARAMETERS):
+                parameters=SOLVER_PARAMETERS, carried=None):
     """A slice's ParaDiag solve at full size, float32, with the Krylov
     ``parameters``: solved once, the pc
     build timed apart, then solved again with CUDA events around it and
@@ -1041,18 +1071,27 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
     (the relative residuals of the first ``ROUNDED_ITERATIONS``
     iterations, each one preconditioner application deeper, within 1e-4
     of each other's; the rest of both histories is printed), and the
-    other checks hold."""
+    other checks hold.  A full-precision solve must launch no
+    per-frequency complex smoother (its frequency hierarchies are stencil
+    pairs), a narrow one no pair smoother.  ``carried``: the
+    per-frequency complex kernel's key; the same solve then runs again
+    from the pc state with per-frequency planes (``carried_solve``).  The
+    row carries the peak device memory of the first solve (pc build
+    included) and of the timed one, and the pc state's bytes."""
     from control_tpu_torch.config import full_precision
     from control_tpu_torch.fem.assemble import assemble
     from control_tpu_torch.fem.space import combine_masks
 
     n, n_t = size
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ctl = build(n, n_t, torch.float32, dev, "paradiag")
     first = solve(ctl, bounds, gated, budget=None if gated else 1,
                   parameters=parameters)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
+    first_peak = torch.cuda.max_memory_allocated()
 
     # the pc build alone, on the card, from the solve's own inputs
     with full_precision():
@@ -1066,13 +1105,20 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
         torch.cuda.synchronize()
         pc_build_s = time.perf_counter() - t0
 
-    info, row = repeat_solve_row(
-        lambda: solve(ctl, bounds, gated, parameters=parameters), metric,
-        "paradiag", card)
+    def solve_fn(budget=None):
+        return solve(ctl, bounds, gated and budget is None, budget=budget,
+                     parameters=parameters)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    info, row = repeat_solve_row(solve_fn, metric, "paradiag", card)
+    weight_dtype = getattr(ctl, "_mg_weight_dtype", None)
     row.update(pc_build_s=pc_build_s, first_solve_s=first_s,
-               first_iterations=first.iterations,
-               weight_dtype=getattr(ctl, "_mg_weight_dtype", None),
-               CN=ctl._CN, gmres_restart=parameters["gmres_restart"])
+               first_iterations=first.iterations, weight_dtype=weight_dtype,
+               CN=ctl._CN, gmres_restart=parameters["gmres_restart"],
+               first_solve_peak_bytes=first_peak,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               pc_state_bytes=state_bytes(ctl._pc_state_cache))
     if full_row is not None:
         row["full_precision"] = {
             k: full_row[k] for k in ("iterations", "relative_residual",
@@ -1096,8 +1142,12 @@ def timed_solve(dev, record, card, key, metric, build, size, bounds,
                 np.max(gap[:ROUNDED_ITERATIONS + 1])),
             "history_max_rel": float(np.max(gap)),
             "relative_history": [float(r) for r in theirs]}
+    absent = pair_keys() if weight_dtype else per_frequency_keys()
     row = judge_solve(record, key, row, info, max_its, keys, fields,
-                      gated=gated)
+                      gated=gated, absent=absent)
+    if carried is not None:
+        row["per_frequency_state"] = carried_solve(ctl, solve_fn, metric,
+                                                   card, info, carried)
     if not gated:
         same = row["rounded_planes_full_kernels"]
         if not (info.iterations >= ROUNDED_ITERATIONS
@@ -1135,12 +1185,12 @@ def repeat_solve_row(solve_fn, metric, schur, card, dtype="float32"):
 
 
 def judge_solve(record, key, row, info, max_its, keys, fields,
-                gated=True):
+                gated=True, absent=()):
     """Print and record a timed solve's row, and hold it to its targets:
     convergence below 1e-6 within ``max_its`` (unless not ``gated``: then
     a finite residual), every field (name: (tensor, space, blocks)) on
     the card, finite and of its shape, every kernel of ``keys``
-    launched."""
+    launched and none of ``absent``."""
     print(json.dumps(row), flush=True)
     record[key] = row
     if gated and not (info.converged and row["relative_residual"] < 1e-6
@@ -1159,6 +1209,90 @@ def judge_solve(record, key, row, info, max_its, keys, fields,
         if row["launches"][k] <= 0:
             raise AssertionError(f"kernel {k} never launched in the "
                                  f"timed solve: {row['launches']}")
+    for k in absent:
+        if row["launches"][k] != 0:
+            raise AssertionError(f"kernel {k} launched in the timed solve, "
+                                 f"which should not run it: "
+                                 f"{row['launches']}")
+    return row
+
+
+def pair_keys():
+    from control_tpu_torch.ops import stencil as st
+    return tuple(k for k in st.launch_counts
+                 if k.startswith("cheb_smooth_pair"))
+
+
+def per_frequency_keys():
+    """The full-precision complex smoothers on per-frequency planes (K3,
+    K5 complex)."""
+    from control_tpu_torch.ops import stencil as st
+    return tuple(k for k in st.launch_counts
+                 if re.fullmatch(r"cheb_smooth(_3d)?_complex(_q\d)?", k))
+
+
+def state_bytes(tree, seen=None):
+    """Device bytes of the tensors in a pc state (nested dicts and lists),
+    each storage counted once (level 0's stencil pair is the defect
+    correction's ``wF``/``wS``)."""
+    seen = set() if seen is None else seen
+    if torch.is_tensor(tree):
+        ptr = tree.untyped_storage().data_ptr()
+        if ptr in seen:
+            return 0
+        seen.add(ptr)
+        return tree.untyped_storage().nbytes()
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(state_bytes(t, seen) for t in tree)
+    return 0
+
+
+def per_frequency_state(state):
+    """``state`` (a pc state, in place) with every stencil-pair hierarchy
+    replaced by its per-frequency planes (``form_planes``): the layout
+    of a pc state carried from the JAX package by ``utils.convert``, on
+    which the per-frequency complex kernels run."""
+    from control_tpu_torch.solvers.multigrid import form_planes
+    for key, sub in state.items():
+        if isinstance(sub, dict):
+            if "WF" in sub:
+                state[key] = form_planes(sub)
+            else:
+                per_frequency_state(sub)
+    return state
+
+
+def carried_solve(ctl, solve_fn, metric, card, pair_info, key):
+    """The timed solve of ``ctl`` again (``solve_fn``), from its cached pc
+    state with per-frequency planes (``per_frequency_state``): the path
+    of a state carried from the JAX package, and the smoothing the
+    ParaDiag path ran before the stencil pair, timed in the same call.
+    After a one-iteration warm-up, every launch count is set to 0 and the
+    solve timed (``repeat_solve_row``); it must converge below 1e-6
+    within one iteration of the pair's count (the same pc up to float32
+    rounding), launch the per-frequency kernel ``key`` and no pair
+    smoother.  Returns its row with its peak device memory and pc state
+    bytes."""
+    (state,) = ctl._pc_state_cache.values()
+    per_frequency_state(state)
+    solve_fn(budget=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    info, row = repeat_solve_row(solve_fn, metric + "_per_frequency_state",
+                                 "paradiag", card)
+    row.update(peak_bytes=torch.cuda.max_memory_allocated(),
+               pc_state_bytes=state_bytes(state))
+    print(json.dumps(row), flush=True)
+    if not (info.converged and row["relative_residual"] < 1e-6
+            and abs(info.iterations - pair_info.iterations) <= 1):
+        raise AssertionError(f"{metric}: the per-frequency state's solve "
+                             f"is off the pair's: {row}")
+    if row["launches"][key] <= 0 or any(row["launches"][k]
+                                        for k in pair_keys()):
+        raise AssertionError(f"{metric}: the per-frequency state's solve "
+                             f"did not run {key} alone: {row['launches']}")
     return row
 
 
@@ -1925,7 +2059,7 @@ HEX_SMALL_PARAMETERS = dict(HEX_STATIONARY_PARAMETERS,
                             absolute_tolerance=1.0e-13)
 KEYS_HEX_STATIONARY = ("stencil_apply_3d_q3", "cheb_smooth_3d_real_q3")
 KEYS_3D_Q3 = ("stencil_apply_3d_q3", "cheb_smooth_3d_real_q3",
-              "cheb_smooth_3d_complex_q3")
+              "cheb_smooth_pair_3d_q3")
 TOL.update({(k, dt): tol for k, tol32 in (("K6q3", 1e-5), ("K5rq3", 1e-4),
                                           ("K5cq3", 1e-4), ("K5cnq3", 1e-4))
             for dt, tol in (("float64", 1e-12), ("float32", tol32))})
@@ -2087,6 +2221,130 @@ def check_kernels_hex_q3(dev, record):
     return results
 
 
+# ---------------------------------------------------------------------------
+# the ParaDiag smoother on stencil pairs
+# ---------------------------------------------------------------------------
+
+TOL.update({(k, dt): tol for k in ("K3p", "K5cp", "K5cpq2", "K5cpq3")
+            for dt, tol in (("float64", 1e-12), ("float32", 1e-4))})
+
+
+def pair_flops(K, b, steps, residual):
+    """The pair smoother's work on complex fields b: per application,
+    frequency and node 8 K flops (W_F x and W_S x, two real-by-complex
+    multiply-adds an offset) and 8 to form accF + mu accS; the per-node
+    updates as ``cheb_flops``."""
+    return ((steps + int(residual)) * b.numel() * (8 * K + 8)
+            + steps * b.numel() * 32)
+
+
+def check_kernels_pair(dev, record):
+    """The pair smoother (``fused_cheb_smooth_pair``) against its plain
+    twin on the card at the ParaDiag paths' finest shapes, complex64: the
+    flagship's 32 frequencies on 257^2 (degree 1, 3 steps + r), heat3d's
+    8 on 65^3 (degree 1), heat3d_q2's 8 on 65^3 (degree 2) and heat3d_q3's
+    8 on 73^3 (degree 3), 8 steps + r; complex128 on 257^2 and on the next
+    coarser 3-D level (33^3, 33^3, 37^3).  A random real pair (W_F
+    diagonally dominant), the paths' frequencies mu_k (alpha = 1e-3),
+    per-frequency dinv and Gershgorin bounds.  Each row also times the
+    per-frequency kernel (``fused_cheb_smooth``, the path's kernel
+    before the pair) on the same operator's formed planes
+    W_F + mu_k W_S, in turns with the pair (per-frequency, pair, pair,
+    per-frequency), with its bound and its error against the twin."""
+    from control_tpu_torch.ops import stencil as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    results = {k: [] for k in ("K3p", "K5cp", "K5cpq2", "K5cpq3")}
+
+    def uniform(lo, hi, shape, dt):
+        u = torch.rand(shape, generator=gen, dtype=dt, device=dev)
+        return u.mul_(hi - lo).add_(lo)
+
+    def field(shape, cdt):
+        rdt = cdt.to_real()
+        return torch.complex(
+            torch.randn(shape, generator=gen, dtype=rdt, device=dev),
+            torch.randn(shape, generator=gen, dtype=rdt, device=dev))
+
+    def rows(kname, grid, n_rows, degree, steps, cdt):
+        rdt = cdt.to_real()
+        name = str(rdt).split(".")[-1]
+        nd, K = len(grid), (2 * degree + 1) ** len(grid)
+        nf = n_rows // 2 + 1
+        wF = uniform(0.2, 1.0, (K,) + grid, rdt).mul_(-0.5)
+        wF[K // 2] = 4.0 + (K - 9) / 2.0 + uniform(0.0, 1.0, grid, rdt)
+        wS = uniform(-0.3, 0.3, (K,) + grid, rdt)
+        k = np.arange(nf)
+        mu = torch.as_tensor(1e-3 ** (1.0 / n_rows)
+                             * np.exp(-2j * np.pi * k / n_rows), dtype=cdt,
+                             device=dev)
+        per = (-1,) + (1,) * nd
+        d = wF[K // 2][None] + mu.reshape(per) * wS[K // 2][None]
+        dinv = 1.0 / d
+        # Gershgorin: |W_F| + |mu_k| |W_S| bounds |W_F + mu_k W_S|
+        rows_ = (wF.abs().sum(0)[None]
+                 + mu.abs().reshape(per) * wS.abs().sum(0)[None])
+        lam = 1.05 * torch.amax(rows_ / d.abs(), dim=tuple(range(1,
+                                                                 nd + 1)))
+        theta, delta = 0.5 * (lam + lam / 4.0), 0.5 * (lam - lam / 4.0)
+        del d, rows_
+        b, x0 = field((nf,) + grid, cdt), field((nf,) + grid, cdt)
+
+        def kern():
+            return st.fused_cheb_smooth_pair(wF, wS, mu, dinv, b, x0, steps,
+                                             theta, delta, degree,
+                                             want_residual=True, nd=nd)
+
+        def plain():
+            return st._cheb_pair_plain(wF, wS, mu, dinv, b, x0, steps,
+                                       theta, delta, degree,
+                                       want_residual=True, nd=nd)
+
+        ref = plain()
+        W = wF[None] + mu.reshape((-1,) + (1,) * (nd + 1)) * wS[None]
+
+        def per_frequency():
+            return st.fused_cheb_smooth(W, dinv, b, x0, steps, theta, delta,
+                                        degree, want_residual=True, nd=nd)
+
+        pf_err = errors(per_frequency(), ref)[1]
+        pf1 = cuda_ms(per_frequency)
+        row = check_row(
+            kname, name, b.shape, kern(), ref, kern, plain,
+            (nbytes(wF, wS, mu, dinv, b, x0, theta, delta, b, b),
+             pair_flops(K, b, steps, True)),
+            plain_repeats=PLAIN_REPEATS_3D if nd == 3 else REPEATS,
+            steps=steps, degree=degree, per_frequency_max_rel_err=pf_err)
+        pf2 = cuda_ms(per_frequency)
+        row.update(per_frequency_ms=0.5 * (pf1 + pf2),
+                   per_frequency_bound_ms=bound(
+                       nbytes(W, dinv, b, x0, theta, delta, b, b),
+                       cheb_flops(K, b, steps, True), name)[0],
+                   pair_weight_bytes=nbytes(wF, wS),
+                   per_frequency_weight_bytes=nbytes(W))
+        results[kname].append(row)
+        del W
+        torch.cuda.empty_cache()
+
+    g2 = FLAGSHIP["n"] + 1
+    g3 = HEAT3D["n"] + 1
+    gq2 = 2 * HEAT3D_Q2["n"] + 1
+    gq3 = 3 * HEX_Q3["heat_n"] + 1
+    for cdt in (torch.complex64, torch.complex128):
+        full = cdt == torch.complex64
+        rows("K3p", (g2, g2), FLAGSHIP["n_t"] - 1, 1, 3, cdt)
+        rows("K5cp", (g3 if full else (g3 + 1) // 2,) * 3,
+             HEAT3D["n_t"] - 1, 1, 8, cdt)
+        rows("K5cpq2", (gq2 if full else (gq2 + 1) // 2,) * 3,
+             HEAT3D_Q2["n_t"] - 1, 2, 8, cdt)
+        rows("K5cpq3", (gq3 if full else (gq3 + 1) // 2,) * 3,
+             HEX_Q3["heat_n_t"] - 1, 3, 8, cdt)
+    record["kernel_checks_pair"] = results
+    report(results)
+    return results
+
+
 def hex_q3_phase(dev, record, card):
     """The small float64 solves on the card against the CPU, then
     ``stationary_hex_q3`` at 32^3 (float64, FGMRES(10), rtol 1e-10, budget
@@ -2122,7 +2380,7 @@ def hex_q3_phase(dev, record, card):
         dev, record, card, "heat3d_q3",
         f"heat3d_q3_{nh}cubed_nt{hq['heat_n_t']}_kkt_solve_cuda",
         heat3d_q3_problem, (nh, hq["heat_n_t"]), bounds, hq["heat_max_its"],
-        KEYS_3D_Q3)
+        KEYS_3D_Q3, carried="cheb_smooth_3d_complex_q3")
     return rows
 
 
@@ -2166,6 +2424,8 @@ def main():
 
     checks = check_kernels(dev, record)
     lap("kernel_checks")
+    pairk = check_kernels_pair(dev, record)
+    lap("kernel_checks_pair")
     # the 2-D slice
     check_small_f64(dev, record, "small_f64", (
         ("32^2x8", heat_problem, "paradiag", 32, 8, LAMBDA_2D),
@@ -2173,7 +2433,7 @@ def main():
     flag = timed_solve(dev, record, card, "flagship",
                        "heat_control_256x256_nt64_kkt_solve_cuda",
                        heat_problem, (FLAGSHIP["n"], FLAGSHIP["n_t"]),
-                       LAMBDA_2D, 12, KEYS_2D)
+                       LAMBDA_2D, 12, KEYS_2D, carried="cheb_smooth_complex")
     scan_once(dev, record, "flagship_scan", heat_problem,
               (FLAGSHIP["n"], FLAGSHIP["n_t"]), LAMBDA_2D)
     lap("2d")
@@ -2201,7 +2461,8 @@ def main():
          "paradiag", 8, 8, LAMBDA_3D)))
     h3 = timed_solve(dev, record, card, "heat3d",
                      "heat3d_64cubed_nt16_kkt_solve_cuda", heat3d_problem,
-                     (HEAT3D["n"], HEAT3D["n_t"]), LAMBDA_3D, 10, KEYS_3D)
+                     (HEAT3D["n"], HEAT3D["n_t"]), LAMBDA_3D, 10, KEYS_3D,
+                     carried="cheb_smooth_3d_complex")
     h3n = timed_solve(dev, record, card, "heat3d_bf16",
                       "heat3d_64cubed_nt16_kkt_solve_bf16_cuda",
                       with_weights(heat3d_problem, WEIGHT_DTYPE),
@@ -2240,7 +2501,7 @@ def main():
                      "heat3d_q2_32cubed_nt16_kkt_solve_cuda",
                      heat3d_q2_problem, (HEAT3D_Q2["n"], HEAT3D_Q2["n_t"]),
                      LAMBDA_Q2, SOLVER_PARAMETERS["maximum_iterations"],
-                     KEYS_3D_Q2)
+                     KEYS_3D_Q2, carried="cheb_smooth_3d_complex_q2")
     q2n = timed_solve(dev, record, card, "heat3d_q2_bf16",
                       "heat3d_q2_32cubed_nt16_kkt_solve_bf16_cuda",
                       with_weights(heat3d_q2_problem, WEIGHT_DTYPE),
@@ -2272,7 +2533,7 @@ def main():
                      "heat_control_be_256x256_nt64_kkt_solve_cuda",
                      heat_be_problem, (BE["n"], BE["n_t"]), LAMBDA_2D,
                      BE_PARAMETERS["maximum_iterations"], KEYS_2D,
-                     parameters=BE_PARAMETERS)
+                     parameters=BE_PARAMETERS, carried="cheb_smooth_complex")
     be_restart10(dev, record, card, (BE["n"], BE["n_t"]), LAMBDA_2D)
     be_scan_f64(dev, record, card, (BE["n"], BE["n_t"]), LAMBDA_2D,
                 BE["scan_its"])
@@ -2312,8 +2573,15 @@ def main():
     cheb_src = "control_tpu_torch/csrc/cheb_smooth.cu"
     narrow_src = "control_tpu_torch/csrc/cheb_smooth_narrow.cu"
     vector_src = "control_tpu_torch/csrc/cheb_smooth_vector.cu"
+    pair_src = "control_tpu_torch/csrc/cheb_smooth_pair.cu"
     fl, hl, sl = flag["launches"], h3["launches"], sk["launches"]
     s3l, ql = s3["launches"], q2["launches"]
+    # the per-frequency complex kernels' launches: the same solves from a
+    # pc state with per-frequency planes
+    fpl, hpl, qpl = (r["per_frequency_state"]["launches"]
+                     for r in (flag, h3, q2))
+    bepl = be["per_frequency_state"]["launches"]
+    hhpl = hexq["heat"]["per_frequency_state"]["launches"]
     fnl, hnl, qnl = (flag_n["launches"], h3n["launches"],
                      q2n["launches"])
     m2l = mg_n["multigrid_2d"]["launches"]
@@ -2328,7 +2596,7 @@ def main():
             "control_tpu/ops/stencil.py:589", "cheb_smooth_real", fl,
             checks["K2"]),
         row("K3 cheb_smooth (complex)", cheb_src,
-            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex", fl,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex", fpl,
             checks["K3"]),
         row("K4 cheb_smooth (vector)", vector_src,
             "control_tpu/ops/stencil.py:853", "cheb_smooth_vector", sl,
@@ -2337,7 +2605,7 @@ def main():
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real", hl,
             checks["K5r"]),
         row("K5 cheb_smooth 3-D (complex)", cheb_src,
-            "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex", hl,
+            "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex", hpl,
             checks["K5c"]),
         row("K6 stencil_apply 3-D", apply_src,
             "control_tpu/ops/stencil.py:255", "stencil_apply_3d", hl,
@@ -2350,7 +2618,7 @@ def main():
             checks["K5rq2"]),
         row("K5 cheb_smooth 3-D (complex, degree 2)", cheb_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex_q2",
-            ql, checks["K5cq2"]),
+            qpl, checks["K5cq2"]),
         row("K6 stencil_apply 3-D (degree 2)", apply_src,
             "control_tpu/ops/stencil.py:255", "stencil_apply_3d_q2", ql,
             checks["K6q2"]),
@@ -2373,7 +2641,7 @@ def main():
             cheb_src, "control_tpu/ops/stencil.py:589", "cheb_smooth_real",
             bel, checks["K2be"]),
         row("K3 cheb_smooth (complex, backward-Euler interior)", cheb_src,
-            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex", bel,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_complex", bepl,
             checks["K3be"]),
         row("K5 cheb_smooth 3-D (real, backward-Euler edge rows, batch 1)",
             cheb_src, "control_tpu/ops/stencil.py:1090",
@@ -2407,10 +2675,22 @@ def main():
             hexk["K5rq3"], dtype="float64"),
         row("K5 cheb_smooth 3-D (complex, degree 3)", cheb_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex_q3",
-            hhl, hexk["K5cq3"]),
+            hhpl, hexk["K5cq3"]),
         row("K5 cheb_smooth 3-D (complex, degree 3, bf16 weights)",
             narrow_src, "control_tpu/ops/stencil.py:1090",
             "cheb_smooth_3d_complex_q3_bf16", hhl, hexk["K5cnq3"]),
+        row("K3 cheb_smooth_pair (complex, stencil pair)", pair_src,
+            "control_tpu/ops/stencil.py:728", "cheb_smooth_pair_2d", fl,
+            pairk["K3p"]),
+        row("K5 cheb_smooth_pair 3-D (complex, stencil pair)", pair_src,
+            "control_tpu/ops/stencil.py:1090", "cheb_smooth_pair_3d", hl,
+            pairk["K5cp"]),
+        row("K5 cheb_smooth_pair 3-D (complex, stencil pair, degree 2)",
+            pair_src, "control_tpu/ops/stencil.py:1090",
+            "cheb_smooth_pair_3d_q2", ql, pairk["K5cpq2"]),
+        row("K5 cheb_smooth_pair 3-D (complex, stencil pair, degree 3)",
+            pair_src, "control_tpu/ops/stencil.py:1090",
+            "cheb_smooth_pair_3d_q3", hhl, pairk["K5cpq3"]),
     ]}
     record["kernels"] = kernels_line["kernels"]
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as fh:

@@ -53,7 +53,8 @@ from ..fem.space import (Function, MixedFunction, DirichletBC, homogenize,
                          combine_masks)
 from ..fem.assemble import assemble
 from ..ops.local_op import LocalOp
-from ..ops.stencil import node_stencil, apply_stencil
+from ..ops.stencil import (node_stencil, apply_stencil,
+                           weight_storage_dtype)
 from ..solvers.block import (MultiBlockSystem, BlockAction,
                              DirichletBCNullspace, NoneNullspace, apply_T_1,
                              apply_T_2, apply_T_1_inv, apply_T_2_inv,
@@ -211,7 +212,13 @@ class _ParaDiagSweep:
     over n//2+1 frequencies (Hermitian symmetry of the real input).  The
     D_a^{-1} unscaling amplifies frequency-solve errors by up to 1/alpha;
     one defect-correction step u <- u + P(b - L u) squares the error of an
-    application."""
+    application.
+
+    The frequency hierarchies are built as one real stencil pair per level
+    (``MGConfig.build_pair``: W_F + mu_k W_S), which one smoothing call
+    reads once for all frequencies; with a ``weight_dtype`` narrower than
+    the problem's, and from a state carried from the JAX package, they
+    are per-frequency planes (``MGConfig.build``)."""
 
     def __init__(self, space, mask, diag_A, sub_A, n, alpha=None,
                  cycles=2, state=None, defect_steps=1, smooth=None,
@@ -246,19 +253,27 @@ class _ParaDiagSweep:
             mu = torch.as_tensor(
                 self.alpha ** (1.0 / n) * np.exp((-2j * np.pi / n) * k),
                 dtype=cdtype, device=dev)
-            F = diag_A[0].to(cdtype)
-            S = sub_A[0].expand(diag_A.shape[1:]).to(cdtype)
-            A_k = F[None] + mu[:, None, None, None] * S[None]
-            self.params = self.config.build(A_k)
-            # exact bidiagonal factor stencils for the defect correction
-            # (masked rows: identity on the diagonal factor, zero on the
-            # sub-diagonal)
-            self._wF = node_stencil(diag_A[0], space, mask=mask)
-            self._wS = node_stencil(sub_A[0].expand(diag_A.shape[1:]),
-                                    space, mask=mask, alpha=0.0)
+            S = sub_A[0].expand(diag_A.shape[1:])
+            if weight_storage_dtype(weight_dtype, cdtype) is None:
+                # every level's frequency blocks as one real stencil pair
+                # W_F + mu_k W_S; level 0's pair is the exact bidiagonal
+                # factor stencils of the defect correction (masked rows:
+                # identity on the diagonal factor, zero on the
+                # sub-diagonal)
+                self.params = self.config.build_pair(diag_A[0], S, mu)
+                self._wF = self.params["WF"][0]
+                self._wS = self.params["WS"][0]
+            else:
+                # narrow planes: per-frequency hierarchies, stored narrow
+                # (rounded as the JAX package rounds its complex planes)
+                A_k = (diag_A[0].to(cdtype)[None]
+                       + mu[:, None, None, None] * S.to(cdtype)[None])
+                self.params = self.config.build(A_k)
+                self._wF = node_stencil(diag_A[0], space, mask=mask)
+                self._wS = node_stencil(S, space, mask=mask, alpha=0.0)
         else:
-            # a state carried from the JAX package holds full planes; the
-            # port's own holds them narrow already
+            # a state carried from the JAX package holds per-frequency full
+            # planes; the port's own holds a stencil pair, or narrow planes
             self.params = self.config.store(state["params"])
             self._wF = state["wF"]
             self._wS = state["wS"]

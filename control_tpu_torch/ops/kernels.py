@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("stencil_apply.cu", "cheb_smooth.cu", "cheb_smooth_narrow.cu",
-           "cheb_smooth_vector.cu")
+           "cheb_smooth_vector.cu", "cheb_smooth_pair.cu")
 HEADERS = ("field_ops.cuh", "cheb_smooth.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
@@ -139,6 +139,13 @@ def library():
                                              i32, i32, i32, i32, i32, i32,
                                              vp]
         lib.cheb_smooth_vector3d.restype = i32
+        # (dtype, wF, wS, mu, dinv, d_bstride, b, x0, theta, delta,
+        # th_stride, x_out, x_tmp, p, r, n, nz, ny, nx, nd, degree, steps,
+        # stream)
+        lib.cheb_smooth_pair.argtypes = [i32, vp, vp, vp, vp, i64, vp, vp,
+                                         vp, vp, i32, vp, vp, vp, vp, i32,
+                                         i32, i32, i32, i32, i32, i32, vp]
+        lib.cheb_smooth_pair.restype = i32
         _lib = lib
     return _lib
 

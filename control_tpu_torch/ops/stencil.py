@@ -23,7 +23,10 @@ operations of the preconditioner on the card:
   recurrence for the ParaDiag frequency blocks;
 * K4 (2-D, dim = 2) and K5v (3-D, dim = 3) ``fused_cheb_smooth`` on real
   vector fields: the velocity mass solves and V-cycles of the
-  incompressible problems.
+  incompressible problems;
+* ``fused_cheb_smooth_pair``: K3 and K5 complex for a ParaDiag frequency
+  hierarchy stored as one real stencil pair, A_k = W_F + mu_k W_S, whose
+  weights each step reads once for all frequencies.
 
 The 2-D kernels take degrees 1-4 (K = 9, 25, 49, 81), the scalar 3-D ones
 degrees 1-3 (K = 27, 125, 343: hex Q1-Q3) and K5v degrees 1 and 2; other
@@ -84,6 +87,18 @@ launch_counts.update({
     for k in launch_counts if k.startswith("cheb_smooth")
     and not k.endswith("vector")
     for tag in _WEIGHT_TAGS.values()})
+
+
+def _pair_key(degree, nd):
+    """The launch-count key of the pair smoother: ``cheb_smooth_pair_2d``
+    or ``_3d``, with ``_q<degree>`` as the scalar kernels' keys have it."""
+    return (f"cheb_smooth_pair_{nd}d"
+            + (f"_q{degree}" if degree > (1 if nd == 3 else 2) else ""))
+
+
+launch_counts.update({_pair_key(d, nd): 0
+                      for nd, degrees in CUDA_DEGREES.items()
+                      for d in degrees})
 
 # the vector apply forms its products one leading window offset at a time
 # when all K of them at once would take more than this (the 3-D Q2 weight
@@ -432,7 +447,6 @@ def _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
     """Plain PyTorch K2/K3/K4/K5: the reference's Chebyshev-Jacobi
     recurrence (``fused_cheb_smooth(use_pallas=False)``), real or complex,
     scalar or vector stencils, any ``nd``."""
-    d = degree
     # the narrow storage, widened: the values the narrow kernels compute
     # with (planes in b's dtype under a narrower ``weight_dtype`` are
     # rounded here, as the reference rounds them in each call)
@@ -440,6 +454,30 @@ def _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
     if wdt is not None and w.dtype == b.dtype:
         w, dinv = narrow_planes(w, wdt), narrow_planes(dinv, wdt)
     w, dinv = widen_planes(w, b), widen_planes(dinv, b)
+    return _cheb_recurrence(lambda x: _apply_plain(w, x, degree, nd=nd),
+                            dinv, b, x0, steps, theta, delta, want_residual)
+
+
+def _cheb_pair_plain(wF, wS, mu, dinv, b, x0, steps, theta, delta, degree,
+                     want_residual=False, nd=2):
+    """Plain PyTorch twin of the pair smoother: the recurrence of
+    ``_cheb_plain`` with A_k x = W_F x + mu_k (W_S x), two real stencil
+    applications a step; no per-frequency plane is formed."""
+    mu = torch.as_tensor(mu).to(device=b.device, dtype=b.dtype)
+    mu_b = _expand_bound(mu.reshape(()) if b.dim() == nd else mu, b)
+
+    def apply(x):
+        return (_apply_plain(wF, x, degree, nd=nd)
+                + mu_b * _apply_plain(wS, x, degree, nd=nd))
+
+    return _cheb_recurrence(apply, dinv, b, x0, steps, theta, delta,
+                            want_residual)
+
+
+def _cheb_recurrence(apply, dinv, b, x0, steps, theta, delta,
+                     want_residual):
+    """``steps`` Chebyshev-Jacobi iterations with the operator ``apply``
+    (and the final residual), in b's dtype."""
     rdt = b.real.dtype if b.is_complex() else b.dtype
 
     def bound(s):
@@ -453,20 +491,20 @@ def _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
     delta_b = _expand_bound(delta, b)
     sigma1_b = _expand_bound(sigma1, b)
     x = x0
-    r = b - _apply_plain(w, x, d, nd=nd)
+    r = b - apply(x)
     p = (r * dinv) / theta_b
     x = x + p
     rho = 1.0 / sigma1_b
     if torch.is_tensor(rho):
         rho = rho.to(rdt)
     for _ in range(steps - 1):
-        r = b - _apply_plain(w, x, d, nd=nd)
+        r = b - apply(x)
         rho_new = 1.0 / (2.0 * sigma1_b - rho)
         p = rho_new * rho * p + (2.0 * rho_new / delta_b) * (r * dinv)
         x = x + p
         rho = rho_new
     if want_residual:
-        r = b - _apply_plain(w, x, d, nd=nd)
+        r = b - apply(x)
         return x, r
     return x
 
@@ -482,6 +520,17 @@ def _bound_vector(s, n, rdt, device):
     if t.numel() != n:
         raise ValueError("Chebyshev bounds: need a scalar or one per batch")
     return t.contiguous(), 1
+
+
+def _bound_vectors(theta, delta, n, rdt, device):
+    """theta and delta as real device tensors with one shared stride: 0
+    when both are scalars, else 1 (one per batch entry)."""
+    th, th_s = _bound_vector(theta, n, rdt, device)
+    de, de_s = _bound_vector(delta, n, rdt, device)
+    if th_s != de_s:
+        th = th.expand(n).contiguous() if th_s == 0 else th
+        de = de.expand(n).contiguous() if de_s == 0 else de
+    return th, de, max(th_s, de_s)
 
 
 def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
@@ -535,12 +584,7 @@ def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
         d_bs = math.prod(grid)
     bc = b.contiguous()
     xc = x0.expand(lead + grid).contiguous()
-    th, th_s = _bound_vector(theta, n, rdt, b.device)
-    de, de_s = _bound_vector(delta, n, rdt, b.device)
-    if th_s != de_s:
-        th = th.expand(n).contiguous() if th_s == 0 else th
-        de = de.expand(n).contiguous() if de_s == 0 else de
-        th_s = 1
+    th, de, th_s = _bound_vectors(theta, delta, n, rdt, b.device)
     x_out = torch.empty_like(bc)
     x_tmp = torch.empty_like(bc)
     p = torch.empty_like(bc)
@@ -614,12 +658,7 @@ def _cheb_vector_cuda(w, dinv, b, x0, steps, theta, delta, degree,
         dc, d_bs = dinv.expand(lead + field).contiguous(), math.prod(field)
     bc = b.contiguous()
     xc = x0.expand(lead + field).contiguous()
-    th, th_s = _bound_vector(theta, n, dt, b.device)
-    de, de_s = _bound_vector(delta, n, dt, b.device)
-    if th_s != de_s:
-        th = th.expand(n).contiguous() if th_s == 0 else th
-        de = de.expand(n).contiguous() if de_s == 0 else de
-        th_s = 1
+    th, de, th_s = _bound_vectors(theta, delta, n, dt, b.device)
     x_out = torch.empty_like(bc)
     x_tmp = torch.empty_like(bc)
     r = torch.empty_like(bc) if want_residual else None
@@ -689,6 +728,80 @@ def fused_cheb_smooth(w, dinv, b, x0, steps, theta, delta, degree,
     return _cheb_plain(w, dinv, b, x0, steps, theta, delta, degree,
                        want_residual=want_residual,
                        weight_dtype=weight_dtype, nd=nd)
+
+
+def _cheb_pair_cuda(wF, wS, mu, dinv, b, x0, steps, theta, delta, degree,
+                    want_residual, nd):
+    """The pair smoother on the card (``csrc/cheb_smooth_pair.cu``)."""
+    what = "fused_cheb_smooth_pair"
+    dt = b.dtype
+    if dt not in (torch.complex64, torch.complex128):
+        raise TypeError(f"{what}: complex64 or complex128 fields only, "
+                        f"not {dt}")
+    rdt = b.real.dtype
+    if (wF.dtype != rdt or wS.dtype != rdt or wF.device != b.device
+            or wS.device != b.device):
+        raise TypeError(f"{what}: W_F and W_S need the fields' real dtype "
+                        "and their device")
+    if wF.shape != wS.shape or wF.dim() != nd + 1:
+        raise ValueError(f"{what}: W_F and W_S are one real stencil "
+                         "(K, *grid) each, shared by all frequencies")
+    grid = _cuda_grid(tuple(wF.shape), b, degree, nd, what)
+    for t in (dinv, x0):
+        if t.dtype != dt or t.device != b.device:
+            raise TypeError(f"{what}: dinv, b and x0 need one dtype and "
+                            "device")
+    if b.dim() not in (nd, nd + 1):
+        raise ValueError(f"{what}: b must be (*grid) or (n, *grid)")
+    lead = tuple(b.shape[:-nd])
+    n = math.prod(lead)
+    muc = torch.as_tensor(mu).to(device=b.device, dtype=dt).reshape(-1)
+    if muc.numel() != n:
+        raise ValueError(f"{what}: one mu per frequency")
+    # dinv: shared plane (stride 0) or one per frequency
+    if math.prod(dinv.shape[:dinv.dim() - nd]) == 1:
+        dc, d_bs = dinv.reshape(grid).contiguous(), 0
+    else:
+        dc, d_bs = dinv.expand(lead + grid).contiguous(), math.prod(grid)
+    wFc, wSc, muc = wF.contiguous(), wS.contiguous(), muc.contiguous()
+    bc = b.contiguous()
+    xc = x0.expand(lead + grid).contiguous()
+    th, de, th_s = _bound_vectors(theta, delta, n, rdt, b.device)
+    x_out = torch.empty_like(bc)
+    x_tmp = torch.empty_like(bc)
+    p = torch.empty_like(bc)
+    r = torch.empty_like(bc) if want_residual else None
+    lib = kernels.library()
+    code = lib.cheb_smooth_pair(
+        kernels.DTYPE_CODES[dt], wFc.data_ptr(), wSc.data_ptr(),
+        muc.data_ptr(), dc.data_ptr(), d_bs, bc.data_ptr(), xc.data_ptr(),
+        th.data_ptr(), de.data_ptr(), th_s, x_out.data_ptr(),
+        x_tmp.data_ptr(), p.data_ptr(), None if r is None else r.data_ptr(),
+        max(n, 1), *_zyx(grid), nd, degree, int(steps),
+        kernels.stream_ptr(b.device))
+    kernels.check(code, "cheb_smooth_pair")
+    launch_counts[_pair_key(degree, nd)] += 1
+    return (x_out, r) if want_residual else x_out
+
+
+def fused_cheb_smooth_pair(wF, wS, mu, dinv, b, x0, steps, theta, delta,
+                           degree, want_residual=False, nd=2):
+    """``steps`` Chebyshev-Jacobi iterations (+ optionally the final
+    residual) on the frequency blocks A_k = W_F + mu_k W_S of a ParaDiag
+    hierarchy stored as one real stencil pair.
+
+    wF, wS: (K, *grid) real, in b's real dtype, shared by every
+    frequency; mu: (n,) complex (a scalar for unbatched b); dinv, b, x0:
+    (*grid) or (n, *grid) complex (dinv and x0 broadcast to b);
+    theta/delta: scalars or (n,).  The same recurrence as
+    ``fused_cheb_smooth`` on the formed planes W_F + mu_k W_S.  A CUDA
+    tensor runs the kernel (``csrc/cheb_smooth_pair.cu``) or raises; a
+    CPU tensor runs ``_cheb_pair_plain``.  Returns x (and r = b - A x)."""
+    if b.is_cuda:
+        return _cheb_pair_cuda(wF, wS, mu, dinv, b, x0, steps, theta, delta,
+                               degree, want_residual, nd)
+    return _cheb_pair_plain(wF, wS, mu, dinv, b, x0, steps, theta, delta,
+                            degree, want_residual=want_residual, nd=nd)
 
 
 # ---------------------------------------------------------------------------

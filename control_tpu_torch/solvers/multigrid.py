@@ -17,6 +17,9 @@ so:
   K4 / K5v on 2-D / 3-D vector spaces) with Gershgorin bounds from the
   node stencils; with a narrower ``weight_dtype`` the scalar smoothers'
   weight planes are stored narrow once per build,
+* for the ParaDiag frequency blocks A_k = F + mu_k S, ``build_pair``:
+  every level's stencils as one real pair W_F + mu_k W_S for all
+  frequencies (``fused_cheb_smooth_pair`` smooths on it),
 * a dense inverse on the coarsest level.
 
 Hierarchies take leading batch axes on the fine local matrices: one
@@ -33,8 +36,8 @@ from ..fem import elements
 from ..fem.space import FunctionSpace
 from ..ops.local_op import LocalOp, MaskedOp, _global_indices
 from ..ops.stencil import (node_stencil, stencil_diag, stencil_abs_rowsum,
-                           fused_cheb_smooth, narrow_planes,
-                           weight_storage_dtype)
+                           fused_cheb_smooth, fused_cheb_smooth_pair,
+                           narrow_planes, weight_storage_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -326,12 +329,22 @@ class MGConfig:
             prev = self.masks[-1]
             self.masks.append(None if prev is None else prev[half])
 
-    def _ops(self, As):
-        ops = []
-        for A, sp_l, mk in zip(As, self.spaces, self.masks):
-            o = LocalOp(A, sp_l, sp_l)
-            ops.append(MaskedOp(o, mk) if mk is not None else o)
-        return ops
+    def _smoother_planes(self, w, sp):
+        """Diagonal, inverse diagonal and Gershgorin bound (over the grid)
+        of node stencil ``w`` on level space ``sp``."""
+        vec = sp.dim is not None
+        d = stencil_diag(w, vec, nd=sp.ndim)
+        d = torch.where(d == 0, 1.0, d)
+        ratio = stencil_abs_rowsum(w, vec, nd=sp.ndim) / torch.abs(d)
+        lam = torch.amax(ratio, dim=tuple(range(-len(sp.grid_shape), 0)))
+        return d, 1.0 / d, lam
+
+    def _coarsest_dense(self, A, alpha=1.0):
+        """Dense coarsest-level operator of local matrices ``A`` (masked
+        rows: ``alpha`` on the diagonal)."""
+        sp, mk = self.spaces[-1], self.masks[-1]
+        op = LocalOp(A, sp, sp)
+        return (MaskedOp(op, mk, alpha) if mk is not None else op).to_dense()
 
     def build(self, A):
         """Params for fine-level local matrices ``A`` (*batch, E, b, a):
@@ -344,23 +357,56 @@ class MGConfig:
         As = [A]
         for tr in self.transfers:
             As.append(tr.galerkin(As[-1]))
-        ops = self._ops(As)
-        vec = self.spaces[0].dim is not None
         Ws, diags, dinvs, lams = [], [], [], []
         for A_l, sp_l, mk in zip(As, self.spaces, self.masks):
             w = node_stencil(A_l, sp_l, mask=mk)
             Ws.append(w)
-            d = stencil_diag(w, vec, nd=sp_l.ndim)
-            d = torch.where(d == 0, 1.0, d)
+            d, dinv, lam = self._smoother_planes(w, sp_l)
             diags.append(d)
-            dinvs.append(1.0 / d)
-            ratio = stencil_abs_rowsum(w, vec, nd=sp_l.ndim) / torch.abs(d)
-            lams.append(torch.amax(
-                ratio, dim=tuple(range(-len(sp_l.grid_shape), 0))))
+            dinvs.append(dinv)
+            lams.append(lam)
         # coarsest solve as a precomputed dense inverse
-        Ainv = _dense_inv(ops[-1].to_dense())
+        Ainv = _dense_inv(self._coarsest_dense(As[-1]))
         return self.store({"Ws": Ws, "diags": diags, "dinvs": dinvs,
                            "lams": torch.stack(lams, dim=-1), "Ainv": Ainv})
+
+    def build_pair(self, F, S, mu):
+        """Params of the n frequency hierarchies A_k = F + mu_k S (the
+        ParaDiag blocks) for real fine-level local matrices ``F`` and
+        ``S`` (E|1, b, a) and ``mu`` (n,) complex, with every level's
+        stencils stored as one real pair.
+
+        Galerkin coarsening is linear in A, and the masked node fold is
+        too with the identity of masked rows on F's stencil and zero on
+        S's, so every level's W_k of ``build(F + mu_k S)`` is
+        W_F + mu_k W_S.  Stores per level ``WF`` and ``WS`` (K, *grid),
+        real, shared by all frequencies; ``mu``; ``diags``, ``dinvs``
+        (n, *grid) and ``lams`` (n, levels) as ``build`` makes them of
+        each W_k, which is formed one frequency at a time and not kept;
+        and ``Ainv`` (n, m, m), the inverses of the dense coarsest
+        F_c + mu_k S_c.  Only in full precision: ``store`` forms the
+        per-frequency planes for a narrower ``weight_dtype``."""
+        Fs, Ss = [F], [S]
+        for tr in self.transfers:
+            Fs.append(tr.galerkin(Fs[-1]))
+            Ss.append(tr.galerkin(Ss[-1]))
+        WF, WS, diags, dinvs, lams = [], [], [], [], []
+        for F_l, S_l, sp_l, mk in zip(Fs, Ss, self.spaces, self.masks):
+            wF = node_stencil(F_l, sp_l, mask=mk)
+            wS = node_stencil(S_l, sp_l, mask=mk, alpha=0.0)
+            WF.append(wF)
+            WS.append(wS)
+            planes = [self._smoother_planes(wF + m * wS, sp_l) for m in mu]
+            d, dinv, lam = (torch.stack(t) for t in zip(*planes))
+            diags.append(d)
+            dinvs.append(dinv)
+            lams.append(lam)
+        dF = self._coarsest_dense(Fs[-1])
+        dS = self._coarsest_dense(Ss[-1], alpha=0.0)
+        Ainv = torch.stack([_dense_inv(dF + m * dS) for m in mu])
+        return self.store({"WF": WF, "WS": WS, "mu": mu, "diags": diags,
+                           "dinvs": dinvs, "lams": torch.stack(lams, dim=-1),
+                           "Ainv": Ainv})
 
     def store(self, params):
         """``params`` with every level's weight and inverse-diagonal planes
@@ -368,10 +414,17 @@ class MGConfig:
         complex planes as (re, im) pairs) where it is narrower than the
         problem dtype, so that no smoothing call casts them.  Planes that
         are already narrow (a pc state passed back as ``prebuilt``) pass
-        through, as do all planes without a narrower ``weight_dtype``."""
+        through, as do all planes without a narrower ``weight_dtype``; a
+        pair hierarchy (``build_pair``) passes through without one and has
+        its per-frequency planes formed (``form_planes``) with one."""
         def narrow(a):
             wdt = weight_storage_dtype(self.weight_dtype, a.dtype)
             return a if wdt is None else narrow_planes(a, wdt)
+        if "WF" in params:
+            if weight_storage_dtype(self.weight_dtype,
+                                    params["dinvs"][0].dtype) is None:
+                return params
+            params = form_planes(params)
         return dict(params, Ws=[narrow(w) for w in params["Ws"]],
                     dinvs=[narrow(d) for d in params["dinvs"]])
 
@@ -394,16 +447,27 @@ class MGConfig:
             return xs.reshape(b.shape)
         tr = self.transfers[lvl]
         mk = self.masks[lvl + 1]
-        w = params["Ws"][lvl]
         dinv = params["dinvs"][lvl]
         theta, delta = self._bounds(params["lams"][..., lvl])
         deg = self.spaces[lvl].degree
         nd = self.spaces[lvl].ndim
-        # real fields K2 (K5 in 3-D), complex K3, vector fields K4 (K5v
-        # in 3-D)
-        x, r = fused_cheb_smooth(w, dinv, b, x, self.pre, theta, delta,
-                                 deg, want_residual=True,
-                                 weight_dtype=self.weight_dtype, nd=nd)
+
+        def smooth(x, steps, want_residual=False):
+            if "WF" in params:
+                # the pair hierarchy's frequencies (K3 / K5 complex on
+                # the pair)
+                return fused_cheb_smooth_pair(
+                    params["WF"][lvl], params["WS"][lvl], params["mu"],
+                    dinv, b, x, steps, theta, delta, deg,
+                    want_residual=want_residual, nd=nd)
+            # real fields K2 (K5 in 3-D), complex K3, vector fields K4
+            # (K5v in 3-D)
+            return fused_cheb_smooth(params["Ws"][lvl], dinv, b, x, steps,
+                                     theta, delta, deg,
+                                     want_residual=want_residual,
+                                     weight_dtype=self.weight_dtype, nd=nd)
+
+        x, r = smooth(x, self.pre, want_residual=True)
         rc = tr.restrict(r)
         if mk is not None:
             rc = torch.where(mk, 0.0, rc)
@@ -411,8 +475,7 @@ class MGConfig:
         if mk is not None:
             ec = torch.where(mk, 0.0, ec)
         x = x + tr.prolong(ec)
-        return fused_cheb_smooth(w, dinv, b, x, self.post, theta, delta,
-                                 deg, weight_dtype=self.weight_dtype, nd=nd)
+        return smooth(x, self.post)
 
     def apply(self, params, b, x0=None, cycles=1):
         x = torch.zeros_like(b) if x0 is None else x0
@@ -421,22 +484,46 @@ class MGConfig:
         return x
 
 
+_PAIR_KEYS = ("WF", "WS")
+
+
 def index_params(params, i):
-    """The hierarchy of batch entry ``i`` of batched params."""
-    return {"Ws": [w[i] for w in params["Ws"]],
-            "diags": [d[i] for d in params["diags"]],
-            "dinvs": [d[i] for d in params["dinvs"]],
-            "lams": params["lams"][i], "Ainv": params["Ainv"][i]}
+    """The hierarchy of batch entry ``i`` of batched params (a pair
+    hierarchy's shared ``WF``/``WS`` pass through)."""
+    out = {k: [t[i] for t in params[k]]
+           for k in ("Ws", "diags", "dinvs") if k in params}
+    out.update({k: params[k][i] for k in ("lams", "Ainv", "mu")
+                if k in params})
+    out.update({k: params[k] for k in _PAIR_KEYS if k in params})
+    return out
 
 
 def flip_params(params):
-    """Batched params with the batch order reversed."""
+    """Batched params with the batch order reversed (a pair hierarchy's
+    shared ``WF``/``WS`` pass through)."""
     def rev(t):
         return torch.flip(t, dims=(0,))
-    return {"Ws": [rev(w) for w in params["Ws"]],
-            "diags": [rev(d) for d in params["diags"]],
-            "dinvs": [rev(d) for d in params["dinvs"]],
-            "lams": rev(params["lams"]), "Ainv": rev(params["Ainv"])}
+    out = {k: [rev(t) for t in params[k]]
+           for k in ("Ws", "diags", "dinvs") if k in params}
+    out.update({k: rev(params[k]) for k in ("lams", "Ainv", "mu")
+                if k in params})
+    out.update({k: params[k] for k in _PAIR_KEYS if k in params})
+    return out
+
+
+def form_planes(params):
+    """The per-frequency params of a pair hierarchy (``build_pair``):
+    every level's planes W_F + mu_k W_S formed and stored as ``Ws``, the
+    layout ``build`` makes of the blocks A_k (and a pc state carried from
+    the JAX package holds).  Other params pass through."""
+    if "WF" not in params:
+        return params
+    mu = params["mu"]
+    out = {k: v for k, v in params.items()
+           if k not in _PAIR_KEYS + ("mu",)}
+    out["Ws"] = [wF[None] + mu.reshape((-1,) + (1,) * wF.dim()) * wS[None]
+                 for wF, wS in zip(params["WF"], params["WS"])]
+    return out
 
 
 class Multigrid:

@@ -11,7 +11,8 @@ in turns within one call on one card):
         one torch.profiler trace of a repeat heat3d (64^3 x 16, f32,
         ParaDiag) solve: device busy share (union of kernel intervals over
         the solve's wall time), device time by kernel and the complex
-        smoothers' (K3, K5 complex) share of it, one JSON line;
+        smoothers' (K3, K5 complex: on per-frequency planes, and the pair
+        smoother on the stencil pairs) share of it, one JSON line;
         ``profile flagship`` and ``profile heat3d_q2`` (hex Q2 32^3 x 16)
         do the same for the 2-D flagship and the Q2 heat slice, and the
         targets ``flagship_bf16``, ``heat3d_bf16`` and ``heat3d_q2_bf16``
@@ -48,6 +49,16 @@ in turns within one call on one card):
         V-cycle levels, the host's time a call (a CPU clock over
         thousands of calls); the script of one checkout times the kernels
         of whichever checkout it is run from: one JSON line.
+
+    python3 <this checkout>/control_tpu_torch/tools/profile_slice.py pair
+        the ParaDiag pair smoother (``fused_cheb_smooth_pair``) at the
+        finest shapes of heat3d_q3 (8 x 73^3, degree 3), heat3d_q2 and
+        heat3d (8 x 65^3, degree 2 and 1), 8 steps + r, and the flagship
+        (32 x 257^2, 3 steps + r), complex64: its time and that of the
+        per-frequency kernel on the same operator's formed planes, in
+        turns (pair, per-frequency, pair), and its error against the
+        plain twin; like ``vector``, it times the kernels of whichever
+        checkout it is run from: one JSON line.
 
     python3 control_tpu_torch/tools/profile_slice.py history stokes \
             float32|float64 [n n_t [iterations]]
@@ -328,9 +339,16 @@ def profile(name):
         return any(re.search(rf"{k}<{nd}, \d+, (float|double)[,>]", e.name)
                    for k in names)
 
+    def pair_smoother(e, nd):
+        # cheb_smooth_pair.cu's kernels: cheb_pair_step<nd, D, NB, V>
+        return any(f"{k}<{nd}," in e.name
+                   for k in ("cheb_pair_step", "cheb_pair_residual"))
+
     device_ms = ms(kernels)
     k3_ms = ms(e for e in kernels if complex_smoother(e, 2))
     k5c_ms = ms(e for e in kernels if complex_smoother(e, 3))
+    k3p_ms = ms(e for e in kernels if pair_smoother(e, 2))
+    k5cp_ms = ms(e for e in kernels if pair_smoother(e, 3))
     return {"slice": name, "iterations": info.iterations,
             "converged": info.converged,
             "relative_residual": info.rnorm / info.rnorm0,
@@ -356,6 +374,11 @@ def profile(name):
             "k3_device_ms": k3_ms, "k5_complex_device_ms": k5c_ms,
             "k3_share_of_device": k3_ms / device_ms,
             "k5_complex_share_of_device": k5c_ms / device_ms,
+            "k3_pair_device_ms": k3p_ms,
+            "k5_complex_pair_device_ms": k5cp_ms,
+            "k3_pair_share_of_device": k3p_ms / device_ms,
+            "k5_complex_pair_share_of_device": k5cp_ms / device_ms,
+            "peak_bytes": torch.cuda.max_memory_allocated(),
             "weight_dtype": NARROW.get(name, (name, None))[1],
             "launches": dict(launches),
             "device_ms_by_kernel": top}
@@ -649,6 +672,79 @@ def precision(n, n_t, budget):
     return out
 
 
+# name: (grid, ParaDiag time rows n (n // 2 + 1 frequencies), degree,
+# steps) of the pair smoother's rows
+PAIR_SHAPES = {"q3": ((73,) * 3, 15, 3, 8), "q2": ((65,) * 3, 15, 2, 8),
+               "q1": ((65,) * 3, 15, 1, 8), "k3": ((257, 257), 63, 1, 3)}
+
+
+def pair(repeats=10):
+    from control_tpu_torch.ops import stencil as st
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+
+    def rand(shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def ms(fn):
+        for _ in range(2):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(repeats):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / repeats
+
+    out = {}
+    for name, (grid, n_rows, degree, steps) in PAIR_SHAPES.items():
+        nd, K = len(grid), (2 * degree + 1) ** len(grid)
+        nf = n_rows // 2 + 1
+        wF = rand((K,) + grid).mul_(-0.4).sub_(0.1)
+        wF[K // 2] = 4.0 + (K - 9) / 2.0 + rand(grid)
+        wS = rand((K,) + grid).sub_(0.5).mul_(0.6)
+        mu = torch.as_tensor(1e-3 ** (1 / n_rows) * np.exp(
+            -2j * np.pi * np.arange(nf) / n_rows), dtype=torch.complex64,
+            device=dev)
+        per = (-1,) + (1,) * nd
+        dinv = 1.0 / (wF[K // 2][None] + mu.reshape(per) * wS[K // 2][None])
+        lam = 1.05 * float(((wF.abs().sum(0) + wS.abs().sum(0))
+                            / (wF[K // 2] - wS[K // 2].abs())).max())
+        th = torch.full((nf,), 0.625 * lam, device=dev)
+        de = torch.full((nf,), 0.375 * lam, device=dev)
+        b = torch.complex(rand((nf,) + grid) - 0.5, rand((nf,) + grid) - 0.5)
+        x0 = torch.zeros_like(b)
+
+        def kern():
+            return st.fused_cheb_smooth_pair(wF, wS, mu, dinv, b, x0, steps,
+                                             th, de, degree,
+                                             want_residual=True, nd=nd)
+
+        ref = st._cheb_pair_plain(wF, wS, mu, dinv, b, x0, steps, th, de,
+                                  degree, want_residual=True, nd=nd)
+        err = max(float((g - r).abs().max() / r.abs().max())
+                  for g, r in zip(kern(), ref))
+        del ref
+        W = wF[None] + mu.reshape((-1,) + (1,) * (nd + 1)) * wS[None]
+
+        def per_frequency():
+            return st.fused_cheb_smooth(W, dinv, b, x0, steps, th, de,
+                                        degree, want_residual=True, nd=nd)
+
+        first = ms(kern)
+        out[name] = {"shape": [nf, *grid], "degree": degree, "steps": steps,
+                     "pair_ms": [first], "per_frequency_ms": ms(per_frequency),
+                     "max_rel_err": err}
+        out[name]["pair_ms"].append(ms(kern))
+        del W
+        torch.cuda.empty_cache()
+    return {"pair": out}
+
+
 def main(argv):
     on_cpu = argv[:1] == ["history"] and argv[-1:] == ["cpu"]
     if on_cpu:
@@ -662,6 +758,8 @@ def main(argv):
         out = kernels2d()
     elif argv == ["vector"]:
         out = vector()
+    elif argv == ["pair"]:
+        out = pair()
     elif argv[:1] == ["profile"] and len(argv) == 2 and (
             argv[1] in SLICES or argv[1] in NARROW
             or argv[1] in STOKES_SLICES or argv[1] in STATIONARY_SLICES):

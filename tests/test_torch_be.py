@@ -323,7 +323,13 @@ def test_be_pc_state(solved):
     if mode == "paradiag":
         assert set(fwd) == {"e_first", "e_last", "wS", "mid"}
         assert set(fwd["mid"]) == {"params", "wF", "wS"}
-        assert fwd["mid"]["params"]["Ws"][0].is_complex()
+        # the interior's frequency hierarchies: one real stencil pair per
+        # level, level 0's the defect correction's, per-frequency planes
+        # complex
+        params = fwd["mid"]["params"]
+        assert not params["WF"][0].is_complex()
+        assert params["WF"][0] is fwd["mid"]["wF"]
+        assert params["mu"].is_complex() and params["dinvs"][0].is_complex()
     else:
         assert set(fwd) == {"params", "sub"}
         assert fwd["params"]["lams"].shape[0] == 8

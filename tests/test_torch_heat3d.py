@@ -440,8 +440,14 @@ def test_heat3d_iterations_match_reference(solved):
     state = next(iter(ct._pc_state_cache.values()))
     if mode == "paradiag":
         assert set(state["fwd"]) == {"params", "wF", "wS"}
-        assert [tuple(w.shape) for w in state["fwd"]["params"]["Ws"]] == [
-            (N_T // 2, 27, 9, 9, 9), (N_T // 2, 27, 5, 5, 5)]
+        # one real stencil pair per level for the N_T // 2 frequencies
+        params = state["fwd"]["params"]
+        for key in ("WF", "WS"):
+            assert [tuple(w.shape) for w in params[key]] == [
+                (27, 9, 9, 9), (27, 5, 5, 5)]
+        assert tuple(params["mu"].shape) == (N_T // 2,)
+        assert [tuple(d.shape) for d in params["dinvs"]] == [
+            (N_T // 2, 9, 9, 9), (N_T // 2, 5, 5, 5)]
     else:
         assert set(state["fwd"]) == {"params", "sub"}
 
@@ -478,19 +484,30 @@ def _close_trees(a, b, tol):
         close(a, b, tol)
 
 
+def _formed(state):
+    """A pc state with every stencil-pair hierarchy's per-frequency planes
+    formed (``form_planes``): the layout of the JAX package's state."""
+    if isinstance(state, dict):
+        if "WF" in state:
+            return tm.form_planes(state)
+        return {k: _formed(v) for k, v in state.items()}
+    return state
+
+
 def test_heat3d_pc_application_with_carried_state(solved):
     """The CN block preconditioner state the JAX package derived for its
     solve (multigrid hierarchies, complex per-frequency ones in ParaDiag,
     stencils, coarse inverses), carried across by utils.convert, equals
-    the port's own to 1e-11 (the coarse inverses' rounding); the pc built
-    from it applies as the port's own to 1e-12."""
+    the port's own (its ParaDiag stencil pairs formed into per-frequency
+    planes) to 1e-11 (the coarse inverses' rounding); the pc built from
+    it applies as the port's own to 1e-12."""
     _, (cj, _), (ct, _) = solved
     own = next(iter(ct._pc_state_cache.values()))
     carried = convert.to_torch(
         jax.tree_util.tree_map(np.asarray,
                                next(iter(cj._pc_state_cache.values()))),
         ct._space_v)
-    _close_trees(carried, own, 1e-11)
+    _close_trees(carried, _formed(own), 1e-11)
     mask = t_combine(ct._space_v, ct._bcs_v[1])
     Dt, Mt = ct._D_stack(ct._v.data), T.assemble(ct._M_v)
     rng = np.random.default_rng(21)

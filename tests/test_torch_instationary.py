@@ -138,7 +138,10 @@ def test_sweep_kind(solved):
     fwd = state["fwd"]
     if mode == "paradiag":
         assert set(fwd) == {"params", "wF", "wS"}
-        assert fwd["params"]["Ws"][0].is_complex()
+        # the frequency hierarchies as one real stencil pair per level
+        assert not fwd["params"]["WF"][0].is_complex()
+        assert fwd["params"]["mu"].is_complex()
+        assert fwd["params"]["dinvs"][0].is_complex()
     else:
         assert set(fwd) == {"params", "sub"}
     assert _ParaDiagSweep and _SweepSolver

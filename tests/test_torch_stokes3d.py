@@ -787,8 +787,14 @@ def test_heat3d_q2_port_solves():
     assert ip.rnorm / ip.rnorm0 < 1e-6 and is_.rnorm / is_.rnorm0 < 1e-6
     state = next(iter(cp._pc_state_cache.values()))
     n_f = (N2_T - 1) // 2 + 1
-    assert [tuple(w.shape) for w in state["fwd"]["params"]["Ws"]] == [
-        (n_f, 125, 9, 9, 9), (n_f, 125, 5, 5, 5)]
+    # one real stencil pair per level for the n_f frequencies
+    params = state["fwd"]["params"]
+    for key in ("WF", "WS"):
+        assert [tuple(w.shape) for w in params[key]] == [
+            (125, 9, 9, 9), (125, 5, 5, 5)]
+    assert tuple(params["mu"].shape) == (n_f,)
+    assert [tuple(d.shape) for d in params["dinvs"]] == [
+        (n_f, 9, 9, 9), (n_f, 5, 5, 5)]
     for name in ("_v", "_zeta"):
         a, b = getattr(cp, name).data, getattr(cs, name).data
         assert tuple(a.shape) == (N2_T,) + (2 * N2 + 1,) * 3
