@@ -9,7 +9,8 @@ which raises (and the script exits non-zero) on failure:
 
 1. the card: refuses to run without CUDA; prints the card's name and power
    limit (``nvidia-smi``), the torch and nvcc versions;
-2. builds the hand-written kernels (``control_tpu_torch/csrc``) with nvcc;
+2. builds the hand-written kernels (``control_tpu_torch/csrc``) with nvcc
+   and fails if ptxas reports a kernel that spills registers;
 3. holds each kernel against its plain PyTorch version on the card, on
    inputs made from a numpy seed at the shapes of the path that runs it,
    in float64 (max relative error <= 1e-12) and float32 (<= 1e-5 for the
@@ -25,14 +26,26 @@ which raises (and the script exits non-zero) on failure:
    (real; complex at degree 1 and 2) at their paths' finest shapes, with
    the planes stored in bfloat16 under float32 fields and in float32
    under float64 ones (``weight_dtype``), the full-precision kernel's time
-   beside each; then the ParaDiag smoother on stencil pairs
+   beside each, and the narrow K2 and K5 real on the one field of the
+   bfloat16 multigrid path's finest level (257^2, 65^3, 8 steps + r);
+   every K2 and K5 real row (real fields: the plane tile on a
+   shared-weight batch, the weight ring on one field,
+   ``csrc/cheb_tile.cuh``; the per-entry kernel with bf16 planes and on
+   one field of a 2-D degree-1 stencil) also prints the kernel
+   ``cheb_design`` picks and, for a batch, the floor of its design and
+   the per-entry kernel's time on the weights copied per field, for one
+   field the (steps + 1)-pass floor of its weight stream, the share of it
+   reached and, beside the ring, the per-entry kernel's time on the same
+   field; then
+   the ParaDiag smoother on stencil pairs
    (``fused_cheb_smooth_pair``: A_k = W_F + mu_k W_S, one real pair for
    all frequencies) against its plain twin at the flagship's (32 x 257^2,
    3 steps + r), heat3d's and heat3d_q2's (8 x 65^3, degree 1 and 2) and
    heat3d_q3's (8 x 73^3, degree 3) shapes, 8 steps + r, in complex64,
    and in complex128 on 257^2 and the next coarser 3-D levels, with the
    per-frequency kernel's time on the same operator's formed planes
-   beside each;
+   beside each; then K2 and K5 real on ragged shared-weight batches (7,
+   9, 17 fields) at small odd grids, degree 1 and 3;
 4. the 2-D slice: a small float64 solve on the card against the same solve
    on the CPU (plain versions), then the flagship heat-control KKT solve
    (Q1 256^2 x 64, Crank-Nicolson, ParaDiag Schur sweeps, GMRES(10), rtol
@@ -139,7 +152,8 @@ which raises (and the script exits non-zero) on failure:
 11. hex Q3 (K = 343): K6, K5 real and K5 complex at degree 3 against
    their plain versions (K6 on one 97^3 float64 field and on 15 x 73^3
    float32 fields with shared weights; K5 real 20 steps + r on 97^3
-   float64 and 10 steps + r on 73^3 float32; K5 complex 8 frequencies
+   float64, 10 steps + r on 73^3 float32 and on heat3d_q3's 15 x 73^3
+   shared-weight mass-solve batch; K5 complex 8 frequencies
    with their own weights, 8 steps + r, on 73^3 complex64 and 37^3
    complex128; the narrow K5 complex with bfloat16 planes on 8 x 73^3);
    small float64 solves (the exact pair of ``tests/test_solvers3d.py:69``
@@ -198,6 +212,11 @@ TOL.update({(f"{k}{q}", dt): tol for k, tol32 in (("K1", 1e-5),
             for q in ("q3", "q4")
             for dt, tol in (("float64", 1e-12), ("float32", tol32))})
 TOL.update({("K3nq3", "float64"): 1e-12, ("K3nq3", "float32"): 1e-4})
+# the shared-weight batch of K5 real at degree 3 and the ragged batches of
+# K2 and K5 real
+TOL.update({(k, dt): tol for k in ("K5rq3s", "K2rag", "K5rag", "K2n1",
+                                   "K5rn1")
+            for dt, tol in (("float64", 1e-12), ("float32", 1e-4))})
 # the narrow weight storage of each field dtype in the kernel rows: the
 # JAX benchmarks' bfloat16 under float32 fields, float32 under float64
 NARROW_WEIGHTS = {"float32": "bfloat16", "float64": "float32"}
@@ -246,6 +265,22 @@ def card_line():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def spilling_functions(ptxas):
+    """The functions of a ``ptxas -v`` report with spill stores or loads:
+    {mangled name: (store bytes, load bytes)}."""
+    out, name = {}, None
+    for line in ptxas.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and (int(m.group(1)) or int(m.group(2))):
+            out[name] = (int(m.group(1)), int(m.group(2)))
+    return out
 
 
 def nvcc_version():
@@ -301,7 +336,8 @@ def vector_batch_width(nd, dtype, n):
 
 
 def design_floor(w, n, passes, width):
-    """The least time (ms) of K4's and K5v's design at these inputs: every
+    """The least time (ms) of K4's, K5v's and the tile's (K2 and K5 real on
+    a batch with shared weights) design at these inputs: every
     weight read once per step for the whole batch (``passes`` = steps, +1
     for the residual).  Each chunk of ``width`` batch entries reads the
     weight set from L2 (at the assumed ``L2_BYTES_S``); a set larger than
@@ -406,6 +442,81 @@ def check_row(name, dtype, shape, got, ref, kernel_fn, plain_fn, work,
                 plain_ms=pms, bound_ms=b_ms, bound_by=b_by, **extra)
 
 
+def per_entry_one(w, dinv, b, x0, steps, th, de, degree, nd, residual):
+    """One real field through the per-entry kernel of
+    ``csrc/cheb_smooth.cuh`` (``cheb_smooth``, or ``cheb_smooth_narrow``
+    for narrow planes: the kernel a single field ran before the weight
+    ring), called at its C entry point with the wrapper's arguments; for
+    timing beside the ring, so it counts no launch."""
+    from control_tpu_torch.ops import kernels
+    from control_tpu_torch.ops import stencil as st
+    grid = tuple(b.shape[-nd:])
+    thv, dev_, th_s = st._bound_vectors(th, de, 1, b.dtype, b.device)
+    bc = b.reshape(grid).contiguous()
+    xc = x0.reshape(grid).contiguous()
+    x_out, x_tmp, p = (torch.empty_like(bc) for _ in range(3))
+    r = torch.empty_like(bc) if residual else None
+    lib = kernels.library()
+    args = (w.contiguous().data_ptr(), 0, dinv.contiguous().data_ptr(), 0,
+            bc.data_ptr(), xc.data_ptr(), thv.data_ptr(), dev_.data_ptr(),
+            th_s, x_out.data_ptr(), x_tmp.data_ptr(), p.data_ptr(),
+            None if r is None else r.data_ptr(), 1, *st._zyx(grid), nd,
+            degree, int(steps), kernels.stream_ptr(b.device))
+    code = kernels.DTYPE_CODES[b.dtype]
+    if w.dtype != b.dtype:
+        kernels.check(lib.cheb_smooth_narrow(
+            code, kernels.WEIGHT_CODES[w.dtype], *args), "cheb_smooth_narrow")
+    else:
+        kernels.check(lib.cheb_smooth(code, *args), "cheb_smooth")
+    return (x_out, r) if residual else x_out
+
+
+def real_extras(row, w, dinv, b, x0, steps, th, de, degree, nd, residual,
+                weight_dtype=None):
+    """What a K2 / K5 real row prints beside its time: the kernel
+    ``cheb_design`` picks; for a batch with shared weights, the floor of
+    that design (``design_floor``: the weights read once a step for the
+    batch) and the time of the per-entry kernel (``csrc/cheb_smooth.cuh``,
+    the kernel these batches ran before the tile) on the same weights
+    copied once per field, which it needs to run; for one field, the
+    (steps + 1)-pass floor of the weight stream from HBM and the share of
+    it the kernel reaches, and where that is the ring, the per-entry
+    kernel's time on the same inputs (``per_entry_one``; its device
+    time beside the ring's: ``profile_slice.py ring``).  Where ``cheb_design`` picks the per-entry
+    kernel itself (2-byte planes, one field of a 2-D degree-1 stencil),
+    the row's time is that kernel's."""
+    from control_tpu_torch.ops import stencil as st
+    n = b.shape[0] if b.dim() == nd + 1 else 1
+    design, width = st.cheb_design(b.dtype, n, True, nd, degree, w.dtype)
+    passes = steps + int(residual)
+    row.update(design=design, batch_width=width)
+    if n == 1:
+        floor_ms = passes * nbytes(w) / HBM_BYTES_S * 1e3
+        row.update(weight_floor_ms=floor_ms,
+                   weight_floor_share=floor_ms / row["ms"])
+    if design == "per_entry":
+        # 2-byte planes and one field of a 2-D degree-1 stencil: the row's
+        # own kernel is the per-entry one
+        return row
+    if design == "ring":
+        row["per_entry_ms"] = cuda_ms(lambda: per_entry_one(
+            w, dinv, b, x0, steps, th, de, degree, nd, residual))
+        return row
+    row["design_floor_ms"] = design_floor(w, n, passes, width)
+    wk = w.reshape(tuple(w.shape[-(nd + 1):]))
+    w_e = wk.expand((n,) + tuple(wk.shape)).contiguous()
+
+    def per_entry():
+        return st.fused_cheb_smooth(w_e, dinv, b, x0, steps, th, de, degree,
+                                    want_residual=residual,
+                                    weight_dtype=weight_dtype, nd=nd)
+
+    row["per_entry_ms"] = cuda_ms(per_entry, 3 if nd == 3 else REPEATS)
+    del w_e
+    torch.cuda.empty_cache()
+    return row
+
+
 def report(results):
     for kname, rows in results.items():
         for r in rows:
@@ -414,9 +525,20 @@ def report(results):
                      f"{L2_BYTES_S / 1e12:g} TB/s)"
                      if "design_floor_ms" in r else "")
             if "weight_dtype" in r:
-                floor = (f", weights {r['weight_dtype']}; full-precision "
+                floor += (f", weights {r['weight_dtype']}; full-precision "
                          f"kernel {r['full_precision_ms']:.4f} ms, bound "
                          f"{r['full_precision_bound_ms']:.4f} ms")
+            if "design" in r:
+                floor += f"; {r['design']} kernel"
+            if "per_entry_ms" in r and r.get("design") == "ring":
+                floor += (f"; per-entry kernel on the same field "
+                          f"{r['per_entry_ms']:.4f} ms")
+            elif "per_entry_ms" in r:
+                floor += (f"; per-entry kernel on the weights copied per "
+                          f"field {r['per_entry_ms']:.4f} ms")
+            if "weight_floor_ms" in r:
+                floor += (f"; weight floor {r['weight_floor_ms']:.4f} ms "
+                          f"({100 * r['weight_floor_share']:.1f}% of it)")
             if "per_frequency_ms" in r:
                 floor = (f"; per-frequency kernel on the formed planes "
                          f"{r['per_frequency_ms']:.4f} ms, bound "
@@ -453,7 +575,8 @@ def check_kernels(dev, record):
     results = {"K1": [], "K2": [], "K3": [], "K6": [], "K5r": [],
                "K5c": [], "K4": [], "K5v": [], "K6q2": [], "K5rq2": [],
                "K5cq2": [], "K2n": [], "K3n": [], "K5rn": [], "K5cn": [],
-               "K5cnq2": [], "K2be": [], "K5rbe": [], "K3be": []}
+               "K5cnq2": [], "K2be": [], "K5rbe": [], "K3be": [],
+               "K2n1": [], "K5rn1": []}
 
     def field(shape, cplx=False):
         a = rng.standard_normal(shape)
@@ -507,10 +630,11 @@ def check_kernels(dev, record):
                 return st._cheb_plain(wt, dt_, bt, x0, steps, th, de, 1,
                                       want_residual=True, nd=nd)
 
-            results[kname].append(check_row(
+            results[kname].append(real_extras(check_row(
                 kname, name, bt.shape, kern(), plain(), kern, plain,
                 (nbytes(wt, dt_, bt, x0, bt, bt),
-                 cheb_flops(3 ** nd, bt, steps, True)), steps=steps))
+                 cheb_flops(3 ** nd, bt, steps, True)), steps=steps),
+                wt, dt_, bt, x0, steps, th, de, 1, nd, True))
 
         def complex_cheb_check(kname, grid, nb, steps):
             # per-batch complex w, (n,) bounds, residual on (the ParaDiag
@@ -632,11 +756,14 @@ def check_kernels(dev, record):
 
             outs = (bt, bt) if complex_ else (bt,)
             bounds = (th, de) if complex_ else ()
-            results[kname].append(check_row(
+            row = check_row(
                 kname, name, bt.shape, kern(), plain(), kern, plain,
                 (nbytes(wt, dt_, bt, x0, *bounds, *outs),
                  cheb_flops(125, bt, steps, complex_)),
-                plain_repeats=PLAIN_REPEATS_3D, steps=steps))
+                plain_repeats=PLAIN_REPEATS_3D, steps=steps)
+            if not complex_:
+                real_extras(row, wt, dt_, bt, x0, steps, th, de, 2, 3, False)
+            results[kname].append(row)
 
         def narrow_cheb_check(kname, grid, nb, steps, complex_, degree):
             # planes stored narrow (``narrow_planes``: bf16 under float32
@@ -677,7 +804,7 @@ def check_kernels(dev, record):
                                             nd=nd)
 
             bounds = (th, de) if complex_ else ()
-            results[kname].append(check_row(
+            row = check_row(
                 kname, name, bt.shape, kern(), plain(), kern, plain,
                 (nbytes(wn, dn, bt, x0, *bounds, bt, bt),
                  cheb_flops(K, bt, steps, True)),
@@ -686,7 +813,11 @@ def check_kernels(dev, record):
                 full_precision_ms=cuda_ms(full),
                 full_precision_bound_ms=bound(
                     nbytes(wt, dt_, bt, x0, *bounds, bt, bt),
-                    cheb_flops(K, bt, steps, True), name)[0]))
+                    cheb_flops(K, bt, steps, True), name)[0])
+            if not complex_:
+                real_extras(row, wn, dn, bt, x0, steps, th, de, degree, nd,
+                            True, weight_dtype=wd)
+            results[kname].append(row)
             del wt, dt_, wn, dn, bt, x0
 
         # K1 (63, 257^2); K2 (63, 257^2), 10 steps; K3 32 frequencies, 3
@@ -727,12 +858,17 @@ def check_kernels(dev, record):
         # narrow weight planes at the finest shape of each path: K3 32
         # frequencies (257^2), 3 steps; K5 complex 8 frequencies (65^3),
         # 8 steps, degree 1 and 2; K2 (63, 257^2) and K5 real (15, 65^3),
-        # 10 steps, the shapes of the multigrid path that drives them
+        # 10 steps, the tile on the mass solves' batches (no path runs
+        # them with narrow planes)
         narrow_cheb_check("K3n", (g, g), (n_t - 1) // 2 + 1, 3, True, 1)
         narrow_cheb_check("K5cn", (g3,) * 3, n3 // 2 + 1, 8, True, 1)
         narrow_cheb_check("K5cnq2", (gq2,) * 3, nq2 // 2 + 1, 8, True, 2)
         narrow_cheb_check("K2n", (g, g), n_t - 1, 10, False, 1)
         narrow_cheb_check("K5rn", (g3,) * 3, n3, 10, False, 1)
+        # the one field of ``narrow_multigrid``'s finest level (the weight
+        # ring), the pre-smoothing's 8 steps + r
+        narrow_cheb_check("K2n1", (g, g), 1, 8, False, 1)
+        narrow_cheb_check("K5rn1", (g3,) * 3, 1, 8, False, 1)
         # backward Euler: the edge rows' single-block V-cycles, K2 at
         # (1, 257^2) and K5 real at (1, 65^3), 10 steps + r; the interior
         # ParaDiag's frequencies, (n_t - 2) // 2 + 1 = 32 for the flagship,
@@ -1931,10 +2067,11 @@ def check_kernels_high_degree(dev, record):
                 return st._cheb_plain(wt, dt_, bt, x0, 20, th, de, degree,
                                       want_residual=True)
 
-            results[f"K2q{degree}"].append(check_row(
+            results[f"K2q{degree}"].append(real_extras(check_row(
                 f"K2q{degree}", name, bt.shape, kern(), plain(), kern, plain,
                 (nbytes(wt, dt_, bt, x0, bt, bt),
-                 cheb_flops(K, bt, 20, True)), steps=20, degree=degree))
+                 cheb_flops(K, bt, 20, True)), steps=20, degree=degree),
+                wt, dt_, bt, x0, 20, th, de, degree, 2, True))
             del wt, dt_, xt, bt, x0
             wc, dc, thc, dec = stencil(nf, (gc, gc), True, degree)
             wt, dt_ = wc.to(cdt), dc.to(cdt)
@@ -2110,8 +2247,9 @@ def check_kernels_hex_q3(dev, record):
     plain versions on the card at the hex Q3 paths' shapes: K6 one
     application on the stationary finest level (1 x 97^3, float64) and on
     heat3d_q3's 15 time steps with shared weights (15 x 73^3, float32);
-    K5 real the 20-step smoothing + r on 1 x 97^3 (float64) and 10 steps +
-    r on 1 x 73^3 (float32); K5 complex heat3d_q3's 8 frequencies with
+    K5 real the 20-step smoothing + r on 1 x 97^3 (float64), 10 steps + r
+    on 1 x 73^3 (float32) and on the 15 x 73^3 shared-weight batch of
+    heat3d_q3's mass solve (float32); K5 complex heat3d_q3's 8 frequencies with
     per-frequency weights, 8 steps + r (the frequency V-cycles' smoothing)
     on 73^3 (complex64) and on 37^3 (complex128, the next level); the
     narrow K5 complex with bfloat16 planes at 8 x 73^3."""
@@ -2124,7 +2262,8 @@ def check_kernels_hex_q3(dev, record):
     g_h = 3 * HEX_Q3["heat_n"] + 1
     nt = HEX_Q3["heat_n_t"] - 1
     nf = nt // 2 + 1
-    results = {k: [] for k in ("K6q3", "K5rq3", "K5cq3", "K5cnq3")}
+    results = {k: [] for k in ("K6q3", "K5rq3", "K5rq3s", "K5cq3",
+                               "K5cnq3")}
 
     def field(shape, dt):
         a = torch.randn(shape, generator=gen, dtype=dt.to_real(), device=dev)
@@ -2146,22 +2285,24 @@ def check_kernels_hex_q3(dev, record):
             lambda: st._apply_plain(w, x, 3, nd=3),
             (nbytes(w, x, x), stencil_flops(K, x, 1)),
             plain_repeats=PLAIN_REPEATS_3D))
-        b = x[:1]
-        x0 = torch.zeros_like(b)
         th, de = float(theta[0]), float(delta[0])
+        # batch one, and (heat3d_q3's mass solve) the shared-weight batch
+        for kname, b in (("K5rq3", x[:1]), ("K5rq3s", x))[:1 + (n_apply > 1)]:
+            x0 = torch.zeros_like(b)
 
-        def kern():
-            return st.fused_cheb_smooth(w, dinv, b, x0, steps, th, de, 3,
-                                        want_residual=True, nd=3)
+            def kern():
+                return st.fused_cheb_smooth(w, dinv, b, x0, steps, th, de, 3,
+                                            want_residual=True, nd=3)
 
-        def plain():
-            return st._cheb_plain(w, dinv, b, x0, steps, th, de, 3,
-                                  want_residual=True, nd=3)
+            def plain():
+                return st._cheb_plain(w, dinv, b, x0, steps, th, de, 3,
+                                      want_residual=True, nd=3)
 
-        results["K5rq3"].append(check_row(
-            "K5rq3", name, b.shape, kern(), plain(), kern, plain,
-            (nbytes(w, dinv, b, x0, b, b), cheb_flops(K, b, steps, True)),
-            plain_repeats=PLAIN_REPEATS_3D, steps=steps))
+            results[kname].append(real_extras(check_row(
+                kname, name, b.shape, kern(), plain(), kern, plain,
+                (nbytes(w, dinv, b, x0, b, b), cheb_flops(K, b, steps, True)),
+                plain_repeats=PLAIN_REPEATS_3D, steps=steps),
+                w, dinv, b, x0, steps, th, de, 3, 3, True))
 
     def complex_rows(g, cdt, narrow):
         rdt = cdt.to_real()
@@ -2217,6 +2358,59 @@ def check_kernels_hex_q3(dev, record):
     complex_rows((g_h + 1) // 2, torch.complex128, False)
     torch.cuda.empty_cache()
     record["kernel_checks_hex_q3"] = results
+    report(results)
+    return results
+
+
+RAGGED_BATCHES = (7, 9, 17)
+RAGGED_GRIDS = {2: (45, 71), 3: (9, 13, 37)}
+
+
+def check_kernels_ragged(dev, record):
+    """K2 and K5 real on ragged shared-weight batches (n = 7, 9, 17: chunks
+    of 8 and 16 with a part-filled last one) at small odd 2-D and 3-D
+    grids, degree 1 and 3, 4 steps + r, float64 and float32, against the
+    plain version: the random weights at the offsets outside the grid
+    are nonzero, so a kernel that fails to mask a neighbour or a padded
+    field disagrees."""
+    from control_tpu_torch.ops import stencil as st
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 13)
+    results = {"K2rag": [], "K5rag": []}
+    steps = 4
+    for dtype in (torch.float64, torch.float32):
+        name = str(dtype).split(".")[-1]
+        for nd, grid in RAGGED_GRIDS.items():
+            kname = "K2rag" if nd == 2 else "K5rag"
+            for degree in (1, 3):
+                K = (2 * degree + 1) ** nd
+                w, dinv, theta, delta = make_stencil_on_card(
+                    gen, 1, grid, False, degree, dev, dtype)
+                w, dinv = w[0], dinv[0]
+                th, de = float(theta[0]), float(delta[0])
+                for n in RAGGED_BATCHES:
+                    b = torch.randn((n,) + grid, generator=gen, dtype=dtype,
+                                    device=dev)
+                    x0 = torch.zeros_like(b)
+
+                    def kern():
+                        return st.fused_cheb_smooth(
+                            w, dinv, b, x0, steps, th, de, degree,
+                            want_residual=True, nd=nd)
+
+                    def plain():
+                        return st._cheb_plain(w, dinv, b, x0, steps, th, de,
+                                              degree, want_residual=True,
+                                              nd=nd)
+
+                    results[kname].append(real_extras(check_row(
+                        kname, name, b.shape, kern(), plain(), kern, plain,
+                        (nbytes(w, dinv, b, x0, b, b),
+                         cheb_flops(K, b, steps, True)), steps=steps,
+                        degree=degree), w, dinv, b, x0, steps, th, de,
+                        degree, nd, True))
+    record["kernel_checks_ragged"] = results
     report(results)
     return results
 
@@ -2408,11 +2602,16 @@ def main():
         fh.write(ptxas)
     regs = sorted({int(line.split("Used ")[1].split()[0])
                    for line in ptxas.splitlines() if "Used " in line})
-    spills = [line for line in ptxas.splitlines()
-              if "spill" in line and not line.strip().startswith("0 bytes")]
+    spills = spilling_functions(ptxas)
     print(f"kernel build + load: {build_s:.2f} s; registers per thread "
           f"{regs}; spilling functions: {len(spills)}", flush=True)
     record["build_s"] = build_s
+    if spills:
+        # the launch bounds (csrc/cheb_tile.cuh tile_min_blocks) were
+        # chosen so that no kernel spills; a spill costs the smoothers up
+        # to half their speed
+        raise AssertionError(f"ptxas spilled registers in {len(spills)} "
+                             f"kernels: {spills}")
     # seconds of each phase since the previous mark (smoke_out's record)
     marks = record["phase_s"] = {}
     last = [time.perf_counter()]
@@ -2426,6 +2625,8 @@ def main():
     lap("kernel_checks")
     pairk = check_kernels_pair(dev, record)
     lap("kernel_checks_pair")
+    check_kernels_ragged(dev, record)
+    lap("kernel_checks_ragged")
     # the 2-D slice
     check_small_f64(dev, record, "small_f64", (
         ("32^2x8", heat_problem, "paradiag", 32, 8, LAMBDA_2D),
@@ -2574,6 +2775,10 @@ def main():
     narrow_src = "control_tpu_torch/csrc/cheb_smooth_narrow.cu"
     vector_src = "control_tpu_torch/csrc/cheb_smooth_vector.cu"
     pair_src = "control_tpu_torch/csrc/cheb_smooth_pair.cu"
+    # K2 and K5 real: the plane tile (a shared-weight batch) and the
+    # weight ring (one field), csrc/cheb_tile.cuh; with bf16 planes, and
+    # on one field of a 2-D degree-1 stencil, the per-entry kernel
+    tile_src = "control_tpu_torch/csrc/cheb_smooth_tile.cu"
     fl, hl, sl = flag["launches"], h3["launches"], sk["launches"]
     s3l, ql = s3["launches"], q2["launches"]
     # the per-frequency complex kernels' launches: the same solves from a
@@ -2592,7 +2797,7 @@ def main():
     kernels_line = {"kernels": [
         row("K1 stencil_apply", apply_src, "control_tpu/ops/stencil.py:206",
             "stencil_apply", fl, checks["K1"]),
-        row("K2 cheb_smooth (real)", cheb_src,
+        row("K2 cheb_smooth (real)", tile_src,
             "control_tpu/ops/stencil.py:589", "cheb_smooth_real", fl,
             checks["K2"]),
         row("K3 cheb_smooth (complex)", cheb_src,
@@ -2601,7 +2806,7 @@ def main():
         row("K4 cheb_smooth (vector)", vector_src,
             "control_tpu/ops/stencil.py:853", "cheb_smooth_vector", sl,
             checks["K4"], dtype="float64"),
-        row("K5 cheb_smooth 3-D (real)", cheb_src,
+        row("K5 cheb_smooth 3-D (real)", tile_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real", hl,
             checks["K5r"]),
         row("K5 cheb_smooth 3-D (complex)", cheb_src,
@@ -2613,7 +2818,7 @@ def main():
         row("K5 cheb_smooth 3-D (vector)", vector_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_vector", s3l,
             checks["K5v"], dtype="float64"),
-        row("K5 cheb_smooth 3-D (real, degree 2)", cheb_src,
+        row("K5 cheb_smooth 3-D (real, degree 2)", tile_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real_q2", ql,
             checks["K5rq2"]),
         row("K5 cheb_smooth 3-D (complex, degree 2)", cheb_src,
@@ -2631,12 +2836,14 @@ def main():
         row("K5 cheb_smooth 3-D (complex, degree 2, bf16 weights)",
             narrow_src, "control_tpu/ops/stencil.py:1090",
             "cheb_smooth_3d_complex_q2_bf16", qnl, checks["K5cnq2"]),
+        # the multigrid path's one field first, then the shared-weight
+        # batch
         row("K2 cheb_smooth (real, bf16 weights)", narrow_src,
             "control_tpu/ops/stencil.py:589", "cheb_smooth_real_bf16", m2l,
-            checks["K2n"]),
+            checks["K2n1"] + checks["K2n"]),
         row("K5 cheb_smooth 3-D (real, bf16 weights)", narrow_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real_bf16",
-            m3l, checks["K5rn"]),
+            m3l, checks["K5rn1"] + checks["K5rn"]),
         row("K2 cheb_smooth (real, backward-Euler edge rows, batch 1)",
             cheb_src, "control_tpu/ops/stencil.py:589", "cheb_smooth_real",
             bel, checks["K2be"]),
@@ -2644,12 +2851,12 @@ def main():
             "control_tpu/ops/stencil.py:728", "cheb_smooth_complex", bepl,
             checks["K3be"]),
         row("K5 cheb_smooth 3-D (real, backward-Euler edge rows, batch 1)",
-            cheb_src, "control_tpu/ops/stencil.py:1090",
+            tile_src, "control_tpu/ops/stencil.py:1090",
             "cheb_smooth_3d_real", h3bel, checks["K5rbe"]),
         row("K1 stencil_apply (degree 3)", apply_src,
             "control_tpu/ops/stencil.py:206", "stencil_apply_q3", q3l,
             high["K1q3"], dtype="float64"),
-        row("K2 cheb_smooth (real, degree 3)", cheb_src,
+        row("K2 cheb_smooth (real, degree 3)", tile_src,
             "control_tpu/ops/stencil.py:589", "cheb_smooth_real_q3", q3l,
             high["K2q3"], dtype="float64"),
         row("K3 cheb_smooth (complex, degree 3)", cheb_src,
@@ -2658,7 +2865,7 @@ def main():
         row("K1 stencil_apply (degree 4)", apply_src,
             "control_tpu/ops/stencil.py:206", "stencil_apply_q4", q3l,
             high["K1q4"], dtype="float64"),
-        row("K2 cheb_smooth (real, degree 4)", cheb_src,
+        row("K2 cheb_smooth (real, degree 4)", tile_src,
             "control_tpu/ops/stencil.py:589", "cheb_smooth_real_q4", q3l,
             high["K2q4"], dtype="float64"),
         row("K3 cheb_smooth (complex, degree 4)", cheb_src,
@@ -2670,9 +2877,12 @@ def main():
         row("K6 stencil_apply 3-D (degree 3)", apply_src,
             "control_tpu/ops/stencil.py:255", "stencil_apply_3d_q3", hsl,
             hexk["K6q3"], dtype="float64"),
-        row("K5 cheb_smooth 3-D (real, degree 3)", cheb_src,
+        row("K5 cheb_smooth 3-D (real, degree 3)", tile_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real_q3", hsl,
             hexk["K5rq3"], dtype="float64"),
+        row("K5 cheb_smooth 3-D (real, degree 3, shared-weight batch)",
+            tile_src, "control_tpu/ops/stencil.py:1090",
+            "cheb_smooth_3d_real_q3", hhl, hexk["K5rq3s"]),
         row("K5 cheb_smooth 3-D (complex, degree 3)", cheb_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex_q3",
             hhpl, hexk["K5cq3"]),

@@ -1,5 +1,8 @@
 // K2, K3 and K5 (real and complex) with weights stored in the field's own
-// dtype; the kernels and their design are in cheb_smooth.cuh.
+// dtype, on calls with per-entry weights, complex fields or one real
+// field of a 2-D degree-1 stencil; the kernels and their design are in
+// cheb_smooth.cuh (other real fields with shared weights run
+// cheb_smooth_tile.cu).
 
 #include "cheb_smooth.cuh"
 

@@ -1,14 +1,22 @@
 // K2 (2-D real), K3 (2-D complex) and K5 (3-D, real and complex): fused
 // Chebyshev-Jacobi smoothing with a node-stencil operator, plus the final
-// residual r = b - A x.
+// residual r = b - A x, one thread per (node, batch entry): the kernel of
+// the calls whose weights differ per batch entry (the ParaDiag frequency
+// blocks of a pc state carried with per-frequency planes, K3 and K5
+// complex), of complex fields, of 2-byte planes and of one real field of
+// a 2-D degree-1 stencil (K = 9).  Other real fields with weights shared
+// by the batch (the mass solves, the real V-cycles) and single real
+// fields run the plane-tile kernel of cheb_tile.cuh instead, and a
+// ParaDiag hierarchy stored as a stencil pair runs the pair smoother
+// there; ops/stencil.py:cheb_design picks by shape.
 //
 // Replaces control_tpu/ops/stencil.py:fused_cheb_smooth (the inline real
 // TPU kernel, K2), control_tpu/ops/stencil.py:_fused_cheb_complex (the
 // re/im-plane TPU kernel, K3) and control_tpu/ops/stencil.py:_fused_cheb_nd3
 // (the whole-volume 3-D TPU kernel in C x C coupled real form, K5, here for
 // C = 1 real and C = 2 complex, degree 1 (K = 27), 2 (K = 125) and 3
-// (K = 343); C = dim = 3 is cheb_smooth_vector.cu).  All compute, per batch
-// entry i with sigma = theta_i / delta_i:
+// (K = 343); C = dim = 3 is cheb_smooth_vector.cu) on those calls.  All
+// compute, per batch entry i with sigma = theta_i / delta_i:
 //
 //   step 0:   r = b - A x0;  p = (r * dinv) / theta;  x = x0 + p
 //   step s:   r = b - A x;   rho' = 1 / (2 sigma - rho)
@@ -31,13 +39,15 @@
 // C entry point issues all launches, so Python makes one call per
 // smoothing.
 //
-// Bound on the H100: device-memory bandwidth.  A step streams the K weight
-// planes, dinv, b, p (read and write) and the two x planes: about K + 6
-// values per node for 2K + 10 flops (real; complex is 4x the flops for 2x
-// the bytes).  So a call moves about (steps + 1) times the bytes of its
-// inputs, where the TPU kernel reads them once; fusing steps (temporal
-// blocking in shared memory, thread block clusters) is the next step for
-// speed.
+// Bound on the H100: device-memory bandwidth.  A step streams each
+// entry's K weight planes, dinv, b, p (read and write) and the two x
+// planes: about K + 6 values per node and entry for 2K + 10 flops (real;
+// complex is 4x the flops for 2x the bytes), so a call moves about
+// (steps + 1) times the bytes of its inputs, where the TPU kernel reads
+// them once.  With per-entry weights nothing is shared between entries;
+// where the weights are shared, cheb_tile.cuh reads them once a step for
+// the batch (and the pair once for all frequencies), which is the design
+// that replaced this one on those calls.
 //
 // 2-D grids take degrees 1-4 (K = 9, 25, 49, 81: Q1-Q4, and P1/P2
 // triangles in their 3 x 3 and 5 x 5 footprints), as the TPU kernels K2

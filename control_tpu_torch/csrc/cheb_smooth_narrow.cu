@@ -1,5 +1,8 @@
-// K2, K3 and K5 (real and complex) with narrow weight planes: the
-// reference's ``weight_dtype`` storage (control_tpu/ops/stencil.py,
+// K2, K3 and K5 (real and complex) with narrow weight planes, on calls
+// with per-entry weights, complex fields or 2-byte planes (real fields
+// with float32 planes under float64 and shared weights run
+// cheb_smooth_tile_narrow.cu): the reference's
+// ``weight_dtype`` storage (control_tpu/ops/stencil.py,
 // fused_cheb_smooth :547, _fused_cheb_complex :647 and _fused_cheb_nd3 :980
 // keep w and dinv in ``wdt`` and upcast each plane on load).  The same
 // kernels as cheb_smooth.cu (cheb_smooth.cuh), instantiated with a weight

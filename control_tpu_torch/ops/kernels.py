@@ -28,8 +28,9 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("stencil_apply.cu", "cheb_smooth.cu", "cheb_smooth_narrow.cu",
-           "cheb_smooth_vector.cu", "cheb_smooth_pair.cu")
-HEADERS = ("field_ops.cuh", "cheb_smooth.cuh")
+           "cheb_smooth_vector.cu", "cheb_smooth_pair.cu",
+           "cheb_smooth_tile.cu", "cheb_smooth_tile_narrow.cu")
+HEADERS = ("field_ops.cuh", "cheb_smooth.cuh", "cheb_tile.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 
 # dtype codes shared with the C entry points
@@ -146,6 +147,13 @@ def library():
                                          vp, vp, i32, vp, vp, vp, vp, i32,
                                          i32, i32, i32, i32, i32, i32, vp]
         lib.cheb_smooth_pair.restype = i32
+        # (dtype, wdtype (-1: the field dtype), nb, w, dinv, d_bstride, b,
+        # x0, theta, delta, th_stride, x_out, x_tmp, p, r, n, nz, ny, nx,
+        # nd, degree, steps, stream)
+        lib.cheb_smooth_tile.argtypes = [i32, i32, i32, vp, vp, i64, vp, vp,
+                                         vp, vp, i32, vp, vp, vp, vp, i32,
+                                         i32, i32, i32, i32, i32, i32, vp]
+        lib.cheb_smooth_tile.restype = i32
         _lib = lib
     return _lib
 

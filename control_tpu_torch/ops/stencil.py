@@ -18,7 +18,10 @@ operations of the preconditioner on the card:
 * K1 (2-D) and K6 (3-D) ``apply_stencil``: one operator application;
 * K2 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on real fields:
   Chebyshev-Jacobi smoothing plus the final residual (mass solves, real
-  V-cycles);
+  V-cycles); a batch sharing its weights runs the plane tile (each weight
+  read once a step for a chunk of fields) and one field of a stencil of
+  16 or more weights the weight ring (``csrc/cheb_tile.cuh``), 2-byte
+  planes the per-entry kernel (``cheb_design`` picks by shape);
 * K3 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on complex fields: the same
   recurrence for the ParaDiag frequency blocks;
 * K4 (2-D, dim = 2) and K5v (3-D, dim = 3) ``fused_cheb_smooth`` on real
@@ -533,6 +536,47 @@ def _bound_vectors(theta, delta, n, rdt, device):
     return th, de, max(th_s, de_s)
 
 
+# the chunk width of the plane-tile kernel (csrc/cheb_tile.cuh) on real
+# fields with shared weights: 16 float32 fields or 8 float64 ones (16
+# registers of accumulators either way); float32 3-D batches at degree 1
+# take 8, where the 16-field kernel keeps its registers unspilled only at
+# 2 blocks an SM
+TILE_WIDTHS = {torch.float32: 16, torch.float64: 8}
+# the stages of the weight ring (csrc/cheb_tile.cuh RING): a stencil of
+# fewer weights leaves it part empty
+RING_STAGES = 16
+
+
+def cheb_design(dtype, n, shared_weights, nd=2, degree=1, weight_dtype=None):
+    """The kernel a CUDA smoothing call of ``n`` fields of ``dtype`` on an
+    ``nd``-D grid at ``degree``, with planes stored in ``weight_dtype``
+    (None: ``dtype``), runs, from its shape alone, and its chunk width:
+
+    * ("per_entry", 0): complex fields, weights per batch entry, 2-byte
+      planes (bf16, f16), and one field of a stencil with fewer weights
+      than the ring has stages (2-D degree 1, K = 9) run
+      ``csrc/cheb_smooth.cuh`` (one thread per node and entry): on one
+      H100, with 2-byte planes the tile took 1.02-1.10x its time on the
+      mass solves' batches and the ring 1.00-1.62x its device time, and
+      at 1 x 257^2, degree 1, the ring 1.08-1.19x (PERF.md, PR 13);
+    * ("tile", NB): n >= 2 real fields with shared weights run
+      ``csrc/cheb_tile.cuh`` in chunks of NB fields (``TILE_WIDTHS``, 8
+      for float32 3-D at degree 1; a ragged last chunk is masked), each
+      weight read once a step for the chunk;
+    * ("ring", 1): one real field runs the same kernel with its weights
+      streamed through the asynchronous shared-memory ring."""
+    narrow2 = weight_dtype is not None and weight_dtype.itemsize == 2
+    if dtype.is_complex or (n > 1 and not shared_weights) or narrow2:
+        return "per_entry", 0
+    if n <= 1:
+        if (2 * degree + 1) ** nd < RING_STAGES:
+            return "per_entry", 0
+        return "ring", 1
+    if dtype == torch.float32 and nd == 3 and degree == 1:
+        return "tile", 8
+    return "tile", TILE_WIDTHS[dtype]
+
+
 def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
                nd, weight_dtype=None):
     """K2, K3 and K5 (real and complex).  w and dinv are planes in b's
@@ -590,21 +634,31 @@ def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,
     p = torch.empty_like(bc)
     r = torch.empty_like(bc) if want_residual else None
     lib = kernels.library()
-    args = (w.contiguous().data_ptr(), w_bs, dc.data_ptr(), d_bs,
-            bc.data_ptr(), xc.data_ptr(), th.data_ptr(), de.data_ptr(),
-            th_s, x_out.data_ptr(), x_tmp.data_ptr(), p.data_ptr(),
-            None if r is None else r.data_ptr(), max(n, 1), *_zyx(grid), nd,
-            degree, int(steps), kernels.stream_ptr(b.device))
     kind = "complex" if b.is_complex() else "real"
     key = _key(f"cheb_smooth_{kind}", degree, nd)
     if narrow:
-        code = lib.cheb_smooth_narrow(kernels.DTYPE_CODES[dt],
-                                      kernels.WEIGHT_CODES[w.dtype], *args)
-        kernels.check(code, "cheb_smooth_narrow")
         key += "_" + _WEIGHT_TAGS[w.dtype]
+    tail = (bc.data_ptr(), xc.data_ptr(), th.data_ptr(), de.data_ptr(), th_s,
+            x_out.data_ptr(), x_tmp.data_ptr(), p.data_ptr(),
+            None if r is None else r.data_ptr(), max(n, 1), *_zyx(grid), nd,
+            degree, int(steps), kernels.stream_ptr(b.device))
+    design, nb = cheb_design(dt, n, w_bs == 0, nd, degree, w.dtype)
+    if design != "per_entry":
+        code = lib.cheb_smooth_tile(
+            kernels.DTYPE_CODES[dt],
+            kernels.WEIGHT_CODES[w.dtype] if narrow else -1, nb,
+            w.contiguous().data_ptr(), dc.data_ptr(), d_bs, *tail)
+        kernels.check(code, "cheb_smooth_tile")
+    elif narrow:
+        code = lib.cheb_smooth_narrow(
+            kernels.DTYPE_CODES[dt], kernels.WEIGHT_CODES[w.dtype],
+            w.contiguous().data_ptr(), w_bs, dc.data_ptr(), d_bs, *tail)
+        kernels.check(code, "cheb_smooth_narrow")
     else:
-        kernels.check(lib.cheb_smooth(kernels.DTYPE_CODES[dt], *args),
-                      "cheb_smooth")
+        code = lib.cheb_smooth(kernels.DTYPE_CODES[dt],
+                               w.contiguous().data_ptr(), w_bs,
+                               dc.data_ptr(), d_bs, *tail)
+        kernels.check(code, "cheb_smooth")
     launch_counts[key] += 1
     return (x_out, r) if want_residual else x_out
 

@@ -60,6 +60,31 @@ in turns within one call on one card):
         plain twin; like ``vector``, it times the kernels of whichever
         checkout it is run from: one JSON line.
 
+    python3 <this checkout>/control_tpu_torch/tools/profile_slice.py real \
+            [name ...]
+        K2 and K5 real (``fused_cheb_smooth`` on real fields) at the
+        shapes of their paths (the mass solves' shared-weight batches,
+        the batch-one V-cycle levels, bf16 planes; ``REAL_SHAPES``, or the
+        names given): the time of a call, its error against the plain
+        version, the bound and the (steps + 1)-pass weight floor; like
+        ``vector``, it times the kernels of whichever checkout it is run
+        from: one JSON line.
+
+    python3 <this checkout>/control_tpu_torch/tools/profile_slice.py ring
+        one field of K2 and K5 real at the V-cycle levels' shapes (1 x
+        257^2 and 1 x 65^3 at degree 1, 8 steps + r; 769^2 and 97^3 at
+        degree 3, 20 + r; 73^3 at degree 3, 10 + r) with planes in
+        float64, float32 under float64, float32 and bfloat16 under
+        float32: the kernel ``fused_cheb_smooth`` runs there (the weight
+        ring, or the per-entry kernel where ``cheb_design`` picks it)
+        against the per-entry kernel called at its C entry point
+        (``chip_smoke.per_entry_one``), in turns (wrapper, per-entry,
+        per-entry, wrapper): device time (the summed durations of the
+        ``cheb`` kernels in a torch.profiler trace, with their count a
+        call, steps + 1 when no record is lost) and event time (host
+        included); like ``vector``, it times the kernels of whichever
+        checkout it is run from: one JSON line.
+
     python3 control_tpu_torch/tools/profile_slice.py history stokes \
             float32|float64 [n n_t [iterations]]
         the Stokes solve's relative residual history within a budget of
@@ -339,10 +364,21 @@ def profile(name):
         return any(re.search(rf"{k}<{nd}, \d+, (float|double)[,>]", e.name)
                    for k in names)
 
+    def tile(e, nd, ns):
+        # cheb_tile.cuh's kernels: cheb_tile_step<nd, D, NB, NS, V, ...>,
+        # NS = 1 for K2 / K5 real, 2 for the pair smoother
+        return any(re.search(rf"{k}<{nd}, \d+, \d+, {ns},", e.name)
+                   for k in ("cheb_tile_step", "cheb_tile_residual"))
+
+    def real_smoother(e, nd):
+        # the per-entry kernel, the plane tile and the weight ring
+        # (cheb_ring_step<nd, D, V, Wt>)
+        return (real(e, ("cheb_step_kernel", "residual_kernel",
+                         "cheb_ring_step", "cheb_ring_residual"), nd)
+                or tile(e, nd, 1))
+
     def pair_smoother(e, nd):
-        # cheb_smooth_pair.cu's kernels: cheb_pair_step<nd, D, NB, V>
-        return any(f"{k}<{nd}," in e.name
-                   for k in ("cheb_pair_step", "cheb_pair_residual"))
+        return tile(e, nd, 2)
 
     device_ms = ms(kernels)
     k3_ms = ms(e for e in kernels if complex_smoother(e, 2))
@@ -365,12 +401,11 @@ def profile(name):
             "mg_transfer_device_ms": ms(e for e in kernels if in_range(e)),
             "k1_device_ms": ms(e for e in kernels
                                if real(e, ("stencil_apply_kernel",))),
-            "k2_device_ms": ms(e for e in kernels if real(
-                e, ("cheb_step_kernel", "residual_kernel"))),
+            "k2_device_ms": ms(e for e in kernels if real_smoother(e, 2)),
             "k6_device_ms": ms(e for e in kernels
                                if real(e, ("stencil_apply_kernel",), 3)),
-            "k5_real_device_ms": ms(e for e in kernels if real(
-                e, ("cheb_step_kernel", "residual_kernel"), 3)),
+            "k5_real_device_ms": ms(e for e in kernels
+                                    if real_smoother(e, 3)),
             "k3_device_ms": k3_ms, "k5_complex_device_ms": k5c_ms,
             "k3_share_of_device": k3_ms / device_ms,
             "k5_complex_share_of_device": k5c_ms / device_ms,
@@ -745,6 +780,179 @@ def pair(repeats=10):
     return {"pair": out}
 
 
+# K2 and K5 real at the shapes of their paths: name -> (grid, batch,
+# degree, steps, final residual, field dtype, weight storage)
+REAL_SHAPES = {
+    "K2 mass solve (flagship)": ((257, 257), 63, 1, 10, True, "float32",
+                                 None),
+    "K2 mass solve, bf16 planes": ((257, 257), 63, 1, 10, True, "float32",
+                                   "bfloat16"),
+    "K2 batch one (flagship BE)": ((257, 257), 1, 1, 10, True, "float32",
+                                   None),
+    "K2 q3 batch one (poisson_q3)": ((769, 769), 1, 3, 20, True, "float64",
+                                     None),
+    "K5 mass solve (heat3d)": ((65,) * 3, 15, 1, 10, True, "float32", None),
+    "K5 mass solve, bf16 planes": ((65,) * 3, 15, 1, 10, True, "float32",
+                                   "bfloat16"),
+    "K5 batch one (heat3d BE)": ((65,) * 3, 1, 1, 10, True, "float32",
+                                 None),
+    "K5 q2 mass solve (heat3d_q2)": ((65,) * 3, 15, 2, 20, False, "float32",
+                                     None),
+    "K5 q3 mass solve (heat3d_q3)": ((73,) * 3, 15, 3, 10, True, "float32",
+                                     None),
+    "K5 q3 batch one (stationary_hex_q3)": ((97,) * 3, 1, 3, 20, True,
+                                            "float64", None),
+    "K5 q3 batch one, f32": ((73,) * 3, 1, 3, 10, True, "float32", None),
+    "K2 batch one, bf16 planes (multigrid 2-D)": ((257, 257), 1, 1, 8, True,
+                                                  "float32", "bfloat16"),
+    "K5 batch one, bf16 planes (multigrid 3-D)": ((65,) * 3, 1, 1, 8, True,
+                                                  "float32", "bfloat16")}
+
+
+def real(names=None, repeats=6):
+    """K2 and K5 real (``fused_cheb_smooth`` on real fields) at
+    ``REAL_SHAPES``: the time of a call (CUDA events, mean of
+    ``repeats``), its error against the plain version, the bound (each
+    input read once, each output written once, or the flops) and the
+    floor of its design: (steps + 1) passes over the weight set from HBM.
+    Times the kernels of whichever checkout it is run from."""
+    from control_tpu_torch.ops import stencil as st
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(13)
+    out = {}
+    for name, (grid, n, degree, steps, resid, dtype, wd) in \
+            REAL_SHAPES.items():
+        if names and name not in names:
+            continue
+        dt = getattr(torch, dtype)
+        nd, K = len(grid), (2 * degree + 1) ** len(grid)
+        w = torch.rand((K,) + grid, generator=gen, device=dev, dtype=dt)
+        w.mul_(-0.4).sub_(0.1)
+        w[K // 2] = 4.0 + (K - 9) / 2.0 + torch.rand(
+            grid, generator=gen, device=dev, dtype=dt)
+        dinv = 1.0 / w[K // 2]
+        lam = 1.05 * float((w.abs().sum(0) / w[K // 2]).max())
+        th, de = 0.625 * lam, 0.375 * lam
+        if wd:
+            w, dinv = st.narrow_planes(w, wd), st.narrow_planes(dinv, wd)
+        b = torch.rand((n,) + grid, generator=gen, device=dev,
+                       dtype=dt) - 0.5
+        x0 = torch.zeros_like(b)
+
+        def kern():
+            return st.fused_cheb_smooth(w, dinv, b, x0, steps, th, de,
+                                        degree, want_residual=resid,
+                                        weight_dtype=wd, nd=nd)
+
+        got = kern()
+        ref = st._cheb_plain(w, dinv, b, x0, steps, th, de, degree,
+                             want_residual=resid, weight_dtype=wd, nd=nd)
+        got, ref = ((got, ref) if resid else ((got,), (ref,)))
+        err = max(float((g - r).abs().max() / r.abs().max())
+                  for g, r in zip(got, ref))
+        del got, ref
+        t = chip_smoke.cuda_ms(kern, repeats)
+        passes = steps + int(resid)
+        wbytes = chip_smoke.nbytes(w)
+        nbytes = chip_smoke.nbytes(w, dinv, b, x0, *((b,) * (1 + resid)))
+        bound_ms, bound_by = chip_smoke.bound(
+            nbytes, chip_smoke.cheb_flops(K, b, steps, resid), dtype)
+        floor_ms = passes * wbytes / chip_smoke.HBM_BYTES_S * 1e3
+        out[name] = {"shape": [n, *grid], "degree": degree, "steps": steps,
+                     "residual": resid, "dtype": dtype, "weights": wd,
+                     "design": st.cheb_design(dt, n, True, nd, degree,
+                                              w.dtype)
+                     if hasattr(st, "cheb_design") else "per_entry",
+                     "ms": t, "max_rel_err": err, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "weight_floor_ms": floor_ms,
+                     "share_of_weight_floor": floor_ms / t}
+        print(name, json.dumps(out[name]), file=sys.stderr, flush=True)
+        del w, dinv, b, x0
+        torch.cuda.empty_cache()
+    return {"real": out}
+
+
+RING_SHAPES = (((257, 257), 1, 8), ((65,) * 3, 1, 8), ((769, 769), 3, 20),
+               ((97,) * 3, 3, 20), ((73,) * 3, 3, 10))
+RING_STORAGE = (("float64", None), ("float64", "float32"),
+                ("float32", None), ("float32", "bfloat16"))
+
+
+def _cheb_device(fn, calls):
+    """Device milliseconds and kernel count a call of ``fn``: the
+    ``cheb`` kernels in a torch.profiler trace of ``calls`` calls."""
+    from torch.profiler import profile as tprofile, ProfilerActivity
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and "cheb" in e.name]
+    return (sum(e.time_range.elapsed_us() for e in ks) / 1e3 / calls,
+            len(ks) / calls)
+
+
+def ring():
+    """The ``ring`` subcommand (module docstring)."""
+    from control_tpu_torch.ops import stencil as st
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    out = []
+    for grid, degree, steps in RING_SHAPES:
+        nd = len(grid)
+        for dtype, wd in RING_STORAGE:
+            if grid == (73,) * 3 and dtype == "float64":
+                continue
+            dt = getattr(torch, dtype)
+            w, dinv, theta, delta = chip_smoke.make_stencil_on_card(
+                gen, 1, grid, False, degree, dev, dt)
+            w, dinv = w[0], dinv[0]
+            th, de = float(theta[0]), float(delta[0])
+            if wd:
+                w, dinv = st.narrow_planes(w, wd), st.narrow_planes(dinv, wd)
+            b = torch.randn((1,) + grid, generator=gen, dtype=dt, device=dev)
+            x0 = torch.zeros_like(b)
+
+            def wrapper():
+                return st.fused_cheb_smooth(w, dinv, b, x0, steps, th, de,
+                                            degree, want_residual=True,
+                                            weight_dtype=wd, nd=nd)
+
+            def per_entry():
+                return chip_smoke.per_entry_one(w, dinv, b, x0, steps, th,
+                                                de, degree, nd, True)
+
+            got, ref = wrapper()[0], per_entry()[0]
+            calls = 3 if grid[0] >= 73 else 20
+            d = [_cheb_device(f, calls)
+                 for f in (wrapper, per_entry, per_entry, wrapper)]
+            e = [chip_smoke.cuda_ms(f, calls)
+                 for f in (wrapper, per_entry, per_entry, wrapper)]
+            row = {"grid": list(grid), "degree": degree, "steps": steps,
+                   "dtype": dtype, "weights": wd or dtype,
+                   "design": st.cheb_design(dt, 1, True, nd, degree,
+                                            w.dtype)[0],
+                   "device_ms": [d[0][0], d[3][0]],
+                   "per_entry_device_ms": [d[1][0], d[2][0]],
+                   "kernels_a_call": [d[0][1], d[1][1]],
+                   "event_ms": [e[0], e[3]],
+                   "per_entry_event_ms": [e[1], e[2]],
+                   "weight_floor_ms": (steps + 1) * chip_smoke.nbytes(w)
+                   / chip_smoke.HBM_BYTES_S * 1e3,
+                   "max_rel_diff": float((got - ref).abs().max()
+                                         / ref.abs().max())}
+            print(json.dumps(row), file=sys.stderr, flush=True)
+            out.append(row)
+            del w, dinv, b, x0, got, ref
+            torch.cuda.empty_cache()
+    return {"ring": out}
+
+
 def main(argv):
     on_cpu = argv[:1] == ["history"] and argv[-1:] == ["cpu"]
     if on_cpu:
@@ -760,6 +968,10 @@ def main(argv):
         out = vector()
     elif argv == ["pair"]:
         out = pair()
+    elif argv[:1] == ["real"]:
+        out = real(argv[1:])
+    elif argv == ["ring"]:
+        out = ring()
     elif argv[:1] == ["profile"] and len(argv) == 2 and (
             argv[1] in SLICES or argv[1] in NARROW
             or argv[1] in STOKES_SLICES or argv[1] in STATIONARY_SLICES):
