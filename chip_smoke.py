@@ -36,7 +36,14 @@ which raises (and the script exits non-zero) on failure:
    the per-entry kernel's time on the weights copied per field, for one
    field the (steps + 1)-pass floor of its weight stream, the share of it
    reached and, beside the ring, the per-entry kernel's time on the same
-   field; then
+   field; every K1 and K6 row likewise prints the kernel ``apply_design``
+   picks (the plane tile, ``csrc/stencil_apply_tile.cu``, on a
+   shared-weight batch; the per-entry kernel on one field) and, for a
+   batch, the floor of its design and the times of the tile and the
+   per-entry kernel on the same fields, both called at their C entry
+   points, in turns; K1
+   and K6 also run on the one field of the backward-Euler edge rows
+   (1 x 257^2, 1 x 65^3); then
    the ParaDiag smoother on stencil pairs
    (``fused_cheb_smooth_pair``: A_k = W_F + mu_k W_S, one real pair for
    all frequencies) against its plain twin at the flagship's (32 x 257^2,
@@ -51,7 +58,9 @@ which raises (and the script exits non-zero) on failure:
    (Q1 256^2 x 64, Crank-Nicolson, ParaDiag Schur sweeps, GMRES(10), rtol
    1e-6, float32) through ``Control.Instationary(...).linear_solve``: solved
    once, then timed; it must converge below 1e-6 relative residual in at
-   most 12 iterations with K1, K2 and the pair smoother launched during
+   most 12 iterations with K1 (on the plane tile: every ParaDiag
+   application is a shared-weight batch; so in every ParaDiag solve
+   below), K2 and the pair smoother launched during
    the timed solve and no per-frequency K3 (its frequency hierarchies
    are stencil pairs); then the same solve from its pc state with
    per-frequency planes (the layout of a state carried from the JAX
@@ -155,7 +164,8 @@ which raises (and the script exits non-zero) on failure:
    float64, 10 steps + r on 73^3 float32 and on heat3d_q3's 15 x 73^3
    shared-weight mass-solve batch; K5 complex 8 frequencies
    with their own weights, 8 steps + r, on 73^3 complex64 and 37^3
-   complex128; the narrow K5 complex with bfloat16 planes on 8 x 73^3);
+   complex128; the narrow K5 complex with bfloat16 planes on 8 x 73^3;
+   the batch of K6 on the plane tile, beside the per-entry kernel);
    small float64 solves (the exact pair of ``tests/test_solvers3d.py:69``
    at hex Q3 4^3, heat3d Q3 ParaDiag 4^3 x 4) on the card against the
    CPU; ``stationary_hex_q3``, that exact pair on 32^3 hex Q3 cells (97^3
@@ -204,7 +214,9 @@ TOL = {("K1", "float64"): 1e-12, ("K1", "float32"): 1e-5,
        ("K5cnq2", "float64"): 1e-12, ("K5cnq2", "float32"): 1e-4,
        ("K2be", "float64"): 1e-12, ("K2be", "float32"): 1e-4,
        ("K5rbe", "float64"): 1e-12, ("K5rbe", "float32"): 1e-4,
-       ("K3be", "float64"): 1e-12, ("K3be", "float32"): 1e-4}
+       ("K3be", "float64"): 1e-12, ("K3be", "float32"): 1e-4,
+       ("K1be", "float64"): 1e-12, ("K1be", "float32"): 1e-5,
+       ("K6be", "float64"): 1e-12, ("K6be", "float32"): 1e-5}
 # degree 3 and 4 (2-D) and the narrow K3 at degree 3: the same tolerances
 TOL.update({(f"{k}{q}", dt): tol for k, tol32 in (("K1", 1e-5),
                                                    ("K2", 1e-4),
@@ -471,6 +483,57 @@ def per_entry_one(w, dinv, b, x0, steps, th, de, degree, nd, residual):
     return (x_out, r) if residual else x_out
 
 
+def entry_apply(w, x, degree, nd, width=0):
+    """The fields x through K1 / K6 called at a C entry point with the
+    shared weights w: the per-entry kernel of ``csrc/stencil_apply.cu``
+    (one thread per node and field: the kernel every K1 / K6 call ran
+    before the plane tile), or with a chunk ``width`` the plane tile of
+    ``csrc/stencil_apply_tile.cu``.  For timing the two side by side with
+    the same host work a call, so it counts no launch."""
+    from control_tpu_torch.ops import kernels
+    from control_tpu_torch.ops import stencil as st
+    grid = tuple(x.shape[-nd:])
+    xc = x.contiguous()
+    y = torch.empty_like(xc)
+    lib = kernels.library()
+    tail = (y.data_ptr(), xc.numel() // int(np.prod(grid)), *st._zyx(grid),
+            nd, degree, kernels.stream_ptr(x.device))
+    code = kernels.DTYPE_CODES[x.dtype]
+    if width:
+        kernels.check(lib.stencil_apply_tile(
+            code, width, w.contiguous().data_ptr(), xc.data_ptr(), *tail),
+            "stencil_apply_tile")
+    else:
+        kernels.check(lib.stencil_apply(
+            code, w.contiguous().data_ptr(), 0, xc.data_ptr(), *tail),
+            "stencil_apply")
+    return y
+
+
+def apply_extras(row, w, x, degree, nd):
+    """What a K1 / K6 row prints beside its time: the kernel
+    ``apply_design`` picks and, where that is the plane tile, the floor of
+    its design (the bound, or the weight set read once a chunk from L2 at
+    the assumed ``L2_BYTES_S`` where that takes longer: ``design_floor``)
+    and the times of the per-entry kernel and of the tile on the same
+    inputs, both called at their C entry points (``entry_apply``) in
+    turns (per-entry, tile, tile, per-entry).  At small shapes the
+    wrapper's host work a call exceeds the kernel's: its device time
+    beside the per-entry kernel's is ``profile_slice.py apply``'s."""
+    from control_tpu_torch.ops import stencil as st
+    n = x.shape[0] if x.dim() == nd + 1 else 1
+    design, width = st.apply_design(x.dtype, n, True, nd, degree)
+    row.update(design=design, batch_width=width)
+    if design == "per_entry":
+        return row
+    row["design_floor_ms"] = max(row["bound_ms"],
+                                 design_floor(w, n, 1, width))
+    ms, pe = in_turns(lambda: entry_apply(w, x, degree, nd, width),
+                      lambda: entry_apply(w, x, degree, nd))
+    row.update(tile_entry_ms=ms, per_entry_ms=pe)
+    return row
+
+
 def real_extras(row, w, dinv, b, x0, steps, th, de, degree, nd, residual,
                 weight_dtype=None):
     """What a K2 / K5 real row prints beside its time: the kernel
@@ -533,6 +596,11 @@ def report(results):
             if "per_entry_ms" in r and r.get("design") == "ring":
                 floor += (f"; per-entry kernel on the same field "
                           f"{r['per_entry_ms']:.4f} ms")
+            elif "tile_entry_ms" in r:
+                floor += (f"; at their C entry points, in turns: the tile "
+                          f"{r['tile_entry_ms']:.4f} ms, the per-entry "
+                          f"kernel on the same fields "
+                          f"{r['per_entry_ms']:.4f} ms")
             elif "per_entry_ms" in r:
                 floor += (f"; per-entry kernel on the weights copied per "
                           f"field {r['per_entry_ms']:.4f} ms")
@@ -576,7 +644,7 @@ def check_kernels(dev, record):
                "K5c": [], "K4": [], "K5v": [], "K6q2": [], "K5rq2": [],
                "K5cq2": [], "K2n": [], "K3n": [], "K5rn": [], "K5cn": [],
                "K5cnq2": [], "K2be": [], "K5rbe": [], "K3be": [],
-               "K2n1": [], "K5rn1": []}
+               "K2n1": [], "K5rn1": [], "K1be": [], "K6be": []}
 
     def field(shape, cplx=False):
         a = rng.standard_normal(shape)
@@ -607,12 +675,13 @@ def check_kernels(dev, record):
             nd = len(grid)
             w, _, _, _ = make_stencil(rng, 1, grid)
             wt, xt = T(w), T(field((nb,) + grid))
-            results[kname].append(check_row(
+            results[kname].append(apply_extras(check_row(
                 kname, name, xt.shape, st.apply_stencil(wt, xt, 1, nd=nd),
                 st._apply_plain(wt, xt, 1, nd=nd),
                 lambda: st.apply_stencil(wt, xt, 1, nd=nd),
                 lambda: st._apply_plain(wt, xt, 1, nd=nd),
-                (nbytes(wt, xt, xt), stencil_flops(3 ** nd, xt, 1))))
+                (nbytes(wt, xt, xt), stencil_flops(3 ** nd, xt, 1))),
+                wt, xt, 1, nd))
 
         def real_cheb_check(kname, grid, nb, steps):
             # shared w and dinv, scalar bounds (the (1,1) mass solve)
@@ -721,13 +790,13 @@ def check_kernels(dev, record):
             # one degree-2 application, shared weights
             w, _, _, _ = make_stencil(rng, 1, grid, degree=2)
             wt, xt = T(w), T(field((nb,) + grid))
-            results["K6q2"].append(check_row(
+            results["K6q2"].append(apply_extras(check_row(
                 "K6q2", name, xt.shape, st.apply_stencil(wt, xt, 2, nd=3),
                 st._apply_plain(wt, xt, 2, nd=3),
                 lambda: st.apply_stencil(wt, xt, 2, nd=3),
                 lambda: st._apply_plain(wt, xt, 2, nd=3),
                 (nbytes(wt, xt, xt), stencil_flops(125, xt, 1)),
-                plain_repeats=PLAIN_REPEATS_3D))
+                plain_repeats=PLAIN_REPEATS_3D), wt, xt, 2, 3))
 
         def q2_cheb_check(kname, grid, nb, steps, complex_):
             # real: shared w and dinv, scalar bounds, x0 = 0, no residual
@@ -875,6 +944,9 @@ def check_kernels(dev, record):
         # K3 at 257^2, 3 steps + r
         real_cheb_check("K2be", (g, g), 1, 10)
         real_cheb_check("K5rbe", (g3,) * 3, 1, 10)
+        # and their one-field applications (the per-entry K1 and K6)
+        apply_check("K1be", (g, g), 1)
+        apply_check("K6be", (g3,) * 3, 1)
         complex_cheb_check("K3be", (g, g), (BE["n_t"] - 2) // 2 + 1, 3)
     record["kernel_checks"] = results
     report(results)
@@ -891,25 +963,29 @@ LAMBDA_STOKES = dict(lambda_v_bounds=(0.25, 1.5625),
                      lambda_p_bounds=(0.25, 2.25))
 # the ParaDiag frequency V-cycles smooth on their stencil pairs
 # (``fused_cheb_smooth_pair``); the per-frequency complex kernels run on
-# a pc state carried with per-frequency planes (``carried_solve``)
-KEYS_2D = ("stencil_apply", "cheb_smooth_real", "cheb_smooth_pair_2d")
+# a pc state carried with per-frequency planes (``carried_solve``); the
+# applications on time batches run the plane tile (``_tile`` keys)
+KEYS_2D = ("stencil_apply", "stencil_apply_tile", "cheb_smooth_real",
+           "cheb_smooth_pair_2d")
 KEYS_STOKES = ("cheb_smooth_vector", "cheb_smooth_real")
-KEYS_3D = ("stencil_apply_3d", "cheb_smooth_3d_real", "cheb_smooth_pair_3d")
+KEYS_3D = ("stencil_apply_3d", "stencil_apply_3d_tile", "cheb_smooth_3d_real",
+           "cheb_smooth_pair_3d")
 LAMBDA_STOKES3D = dict(lambda_v_bounds=(0.1, 2.3),
                        lambda_p_bounds=(0.1, 3.4))
 # the velocity is Q2 (K5v); the pressure's K_p V-cycle and M_p solve are
 # scalar Q1 (K5 real)
 KEYS_STOKES3D = ("cheb_smooth_3d_vector", "cheb_smooth_3d_real")
 LAMBDA_Q2 = (0.1, 2.3)
-KEYS_3D_Q2 = ("stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
-              "cheb_smooth_pair_3d_q2")
+KEYS_3D_Q2 = ("stencil_apply_3d_q2", "stencil_apply_3d_tile_q2",
+              "cheb_smooth_3d_real_q2", "cheb_smooth_pair_3d_q2")
 # with bfloat16 weight planes the ParaDiag V-cycles run the narrow complex
 # kernels; the mass solves and applications stay full precision
-KEYS_2D_BF16 = ("stencil_apply", "cheb_smooth_real",
+KEYS_2D_BF16 = ("stencil_apply", "stencil_apply_tile", "cheb_smooth_real",
                 "cheb_smooth_complex_bf16")
-KEYS_3D_BF16 = ("stencil_apply_3d", "cheb_smooth_3d_real",
-                "cheb_smooth_3d_complex_bf16")
-KEYS_3D_Q2_BF16 = ("stencil_apply_3d_q2", "cheb_smooth_3d_real_q2",
+KEYS_3D_BF16 = ("stencil_apply_3d", "stencil_apply_3d_tile",
+                "cheb_smooth_3d_real", "cheb_smooth_3d_complex_bf16")
+KEYS_3D_Q2_BF16 = ("stencil_apply_3d_q2", "stencil_apply_3d_tile_q2",
+                   "cheb_smooth_3d_real_q2",
                    "cheb_smooth_3d_complex_q2_bf16")
 
 
@@ -2195,8 +2271,8 @@ HEX_SMALL_PARAMETERS = dict(HEX_STATIONARY_PARAMETERS,
                             relative_tolerance=1.0e-13,
                             absolute_tolerance=1.0e-13)
 KEYS_HEX_STATIONARY = ("stencil_apply_3d_q3", "cheb_smooth_3d_real_q3")
-KEYS_3D_Q3 = ("stencil_apply_3d_q3", "cheb_smooth_3d_real_q3",
-              "cheb_smooth_pair_3d_q3")
+KEYS_3D_Q3 = ("stencil_apply_3d_q3", "stencil_apply_3d_tile_q3",
+              "cheb_smooth_3d_real_q3", "cheb_smooth_pair_3d_q3")
 TOL.update({(k, dt): tol for k, tol32 in (("K6q3", 1e-5), ("K5rq3", 1e-4),
                                           ("K5cq3", 1e-4), ("K5cnq3", 1e-4))
             for dt, tol in (("float64", 1e-12), ("float32", tol32))})
@@ -2278,13 +2354,13 @@ def check_kernels_hex_q3(dev, record):
                                                      False, 3, dev, dtype)
         w, dinv = w[0], dinv[0]
         x = field((n_apply,) + (g,) * 3, dtype)
-        results["K6q3"].append(check_row(
+        results["K6q3"].append(apply_extras(check_row(
             "K6q3", name, x.shape, st.apply_stencil(w, x, 3, nd=3),
             st._apply_plain(w, x, 3, nd=3),
             lambda: st.apply_stencil(w, x, 3, nd=3),
             lambda: st._apply_plain(w, x, 3, nd=3),
             (nbytes(w, x, x), stencil_flops(K, x, 1)),
-            plain_repeats=PLAIN_REPEATS_3D))
+            plain_repeats=PLAIN_REPEATS_3D), w, x, 3, 3))
         th, de = float(theta[0]), float(delta[0])
         # batch one, and (heat3d_q3's mass solve) the shared-weight batch
         for kname, b in (("K5rq3", x[:1]), ("K5rq3s", x))[:1 + (n_apply > 1)]:
@@ -2771,6 +2847,13 @@ def main():
                 "library_ms": None}
 
     apply_src = "control_tpu_torch/csrc/stencil_apply.cu"
+    # K1 and K6 on a shared-weight batch of real fields: the plane tile
+    apply_tile_src = "control_tpu_torch/csrc/stencil_apply_tile.cu"
+
+    def per_entry_only(launches, key, tile_key):
+        # the K1 / K6 calls of a run that the per-entry kernel ran
+        return {key: launches.get(key, 0) - launches.get(tile_key, 0)}
+
     cheb_src = "control_tpu_torch/csrc/cheb_smooth.cu"
     narrow_src = "control_tpu_torch/csrc/cheb_smooth_narrow.cu"
     vector_src = "control_tpu_torch/csrc/cheb_smooth_vector.cu"
@@ -2795,8 +2878,14 @@ def main():
     q3l = stat["poisson_q3"]["launches"]
     hsl, hhl = hexq["stationary"]["launches"], hexq["heat"]["launches"]
     kernels_line = {"kernels": [
-        row("K1 stencil_apply", apply_src, "control_tpu/ops/stencil.py:206",
-            "stencil_apply", fl, checks["K1"]),
+        row("K1 stencil_apply (plane tile, shared-weight batch)",
+            apply_tile_src, "control_tpu/ops/stencil.py:206",
+            "stencil_apply_tile", fl, checks["K1"]),
+        row("K1 stencil_apply (per entry, backward-Euler edge rows, "
+            "batch 1)", apply_src, "control_tpu/ops/stencil.py:206",
+            "stencil_apply", per_entry_only(bel, "stencil_apply",
+                                            "stencil_apply_tile"),
+            checks["K1be"]),
         row("K2 cheb_smooth (real)", tile_src,
             "control_tpu/ops/stencil.py:589", "cheb_smooth_real", fl,
             checks["K2"]),
@@ -2812,9 +2901,14 @@ def main():
         row("K5 cheb_smooth 3-D (complex)", cheb_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex", hpl,
             checks["K5c"]),
-        row("K6 stencil_apply 3-D", apply_src,
-            "control_tpu/ops/stencil.py:255", "stencil_apply_3d", hl,
-            checks["K6"]),
+        row("K6 stencil_apply 3-D (plane tile, shared-weight batch)",
+            apply_tile_src, "control_tpu/ops/stencil.py:255",
+            "stencil_apply_3d_tile", hl, checks["K6"]),
+        row("K6 stencil_apply 3-D (per entry, backward-Euler edge rows, "
+            "batch 1)", apply_src, "control_tpu/ops/stencil.py:255",
+            "stencil_apply_3d", per_entry_only(h3bel, "stencil_apply_3d",
+                                               "stencil_apply_3d_tile"),
+            checks["K6be"]),
         row("K5 cheb_smooth 3-D (vector)", vector_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_vector", s3l,
             checks["K5v"], dtype="float64"),
@@ -2824,8 +2918,8 @@ def main():
         row("K5 cheb_smooth 3-D (complex, degree 2)", cheb_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_complex_q2",
             qpl, checks["K5cq2"]),
-        row("K6 stencil_apply 3-D (degree 2)", apply_src,
-            "control_tpu/ops/stencil.py:255", "stencil_apply_3d_q2", ql,
+        row("K6 stencil_apply 3-D (degree 2, plane tile)", apply_tile_src,
+            "control_tpu/ops/stencil.py:255", "stencil_apply_3d_tile_q2", ql,
             checks["K6q2"]),
         row("K3 cheb_smooth (complex, bf16 weights)", narrow_src,
             "control_tpu/ops/stencil.py:728", "cheb_smooth_complex_bf16",
@@ -2874,9 +2968,15 @@ def main():
         row("K3 cheb_smooth (complex, degree 3, bf16 weights)", narrow_src,
             "control_tpu/ops/stencil.py:728", "cheb_smooth_complex_q3_bf16",
             q3l, high["K3nq3"]),
-        row("K6 stencil_apply 3-D (degree 3)", apply_src,
-            "control_tpu/ops/stencil.py:255", "stencil_apply_3d_q3", hsl,
+        row("K6 stencil_apply 3-D (degree 3, per entry, batch 1)",
+            apply_src, "control_tpu/ops/stencil.py:255",
+            "stencil_apply_3d_q3",
+            per_entry_only(hsl, "stencil_apply_3d_q3",
+                           "stencil_apply_3d_tile_q3"),
             hexk["K6q3"], dtype="float64"),
+        row("K6 stencil_apply 3-D (degree 3, plane tile, shared-weight "
+            "batch)", apply_tile_src, "control_tpu/ops/stencil.py:255",
+            "stencil_apply_3d_tile_q3", hhl, hexk["K6q3"]),
         row("K5 cheb_smooth 3-D (real, degree 3)", tile_src,
             "control_tpu/ops/stencil.py:1090", "cheb_smooth_3d_real_q3", hsl,
             hexk["K5rq3"], dtype="float64"),

@@ -11,7 +11,9 @@
 //     the field type, or float32 under float64) and on a single field of
 //     a stencil of RING or more weights (NB = 1, with an asynchronous
 //     weight ring, below).  2-byte planes run cheb_smooth.cuh's per-entry
-//     kernel, which was as fast or faster at every shape measured.
+//     kernel, which was as fast or faster at every shape measured;
+//   * stencil_apply_tile.cu: K1 and K6, one pass of tile_apply without
+//     the recurrence, on a batch of real fields with shared weights.
 //
 // Replaces control_tpu/ops/stencil.py:fused_cheb_smooth's inline real
 // kernel (K2, pallas_call :589), _fused_cheb_complex (K3, :728) and

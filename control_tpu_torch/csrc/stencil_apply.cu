@@ -20,7 +20,11 @@
 // threads on neighbouring x (coalesced), zero padding by bounds checks, a
 // (32, 8) tile of one (y, x) plane per block, and (batch, z) on gridDim.z.
 // A shared weight set (w batch stride 0) serves every batch entry, and is
-// then re-read from L2 by each.
+// then streamed once per entry (from HBM where it exceeds the L2); so a
+// batch of real fields with shared weights runs stencil_apply_tile.cu,
+// which reads each weight once for a chunk of fields, and this kernel
+// serves complex fields, per-entry weights and one field
+// (ops/stencil.py:apply_design).
 
 #include <cuda_runtime.h>
 

@@ -27,8 +27,9 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil_apply.cu", "cheb_smooth.cu", "cheb_smooth_narrow.cu",
-           "cheb_smooth_vector.cu", "cheb_smooth_pair.cu",
+SOURCES = ("stencil_apply.cu", "stencil_apply_tile.cu", "cheb_smooth.cu",
+           "cheb_smooth_narrow.cu", "cheb_smooth_vector.cu",
+           "cheb_smooth_pair.cu",
            "cheb_smooth_tile.cu", "cheb_smooth_tile_narrow.cu")
 HEADERS = ("field_ops.cuh", "cheb_smooth.cuh", "cheb_tile.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -118,6 +119,10 @@ def library():
         lib.stencil_apply.argtypes = [i32, vp, i64, vp, vp, i32, i32, i32,
                                       i32, i32, i32, vp]
         lib.stencil_apply.restype = i32
+        # (dtype, nb, w, x, y, n, nz, ny, nx, nd, degree, stream)
+        lib.stencil_apply_tile.argtypes = [i32, i32, vp, vp, vp, i32, i32,
+                                           i32, i32, i32, i32, vp]
+        lib.stencil_apply_tile.restype = i32
         lib.cheb_smooth.argtypes = [i32, vp, i64, vp, i64, vp, vp, vp, vp,
                                     i32, vp, vp, vp, vp, i32, i32, i32, i32,
                                     i32, i32, i32, vp]

@@ -15,7 +15,11 @@ offset carries a dim x dim coupling block per node:
 Hand-written CUDA kernels (``control_tpu_torch/csrc``) carry the hot
 operations of the preconditioner on the card:
 
-* K1 (2-D) and K6 (3-D) ``apply_stencil``: one operator application;
+* K1 (2-D) and K6 (3-D) ``apply_stencil``: one operator application; a
+  batch of real fields sharing its weights runs the plane tile
+  (``csrc/stencil_apply_tile.cu``, each weight read once for a chunk of
+  fields), any other call the per-entry kernel (``apply_design`` picks
+  by shape);
 * K2 (2-D) and K5 (3-D) ``fused_cheb_smooth`` on real fields:
   Chebyshev-Jacobi smoothing plus the final residual (mass solves, real
   V-cycles); a batch sharing its weights runs the plane tile (each weight
@@ -71,15 +75,23 @@ def _key(base, degree, nd):
 
 # the degrees with a CUDA kernel, per grid dimension
 CUDA_DEGREES = {2: (1, 2, 3, 4), 3: (1, 2, 3)}
+# the (nd, degree) at which a batch of real fields with shared weights
+# runs the plane-tile apply (csrc/stencil_apply_tile.cu): those at which a
+# path calls K1 or K6 on n >= 2 such fields
+TILE_APPLY_GEOMETRIES = ((2, 1), (3, 1), (3, 2), (3, 3))
 # kernel launches per wrapper (one per call that reaches the card): K1,
 # K2, K3 on 2-D grids at degrees 1 and 2 and (the ``_q3``, ``_q4`` keys)
 # 3 and 4; K6 and K5 (real, complex) on 3-D grids at degree 1 and (the
 # ``_q2``, ``_q3`` keys) 2 and 3; K4 and K5v on 2-D and 3-D vector
-# fields; the narrow-weight variants below
+# fields; the narrow-weight variants below.  The ``stencil_apply_tile``
+# keys (``stencil_apply_3d_tile``, ``_q2``, ``_q3``) count the K1 and K6
+# calls that ran the plane tile (``apply_design``), which their K1 / K6
+# key counts too: the per-entry kernel ran the difference.
 launch_counts = dict.fromkeys(
     [_key(k, d, nd) for nd, degrees in CUDA_DEGREES.items()
      for d in degrees for k in ("stencil_apply", "cheb_smooth_real",
                                 "cheb_smooth_complex")]
+    + [_key("stencil_apply_tile", d, nd) for nd, d in TILE_APPLY_GEOMETRIES]
     + ["cheb_smooth_vector", "cheb_smooth_3d_vector"], 0)
 # narrow weight planes (``weight_dtype``): one key per scalar smoother
 # and storage, e.g. "cheb_smooth_3d_complex_q2_bf16"
@@ -327,6 +339,36 @@ def _zyx(grid):
     return (1,) * (3 - len(grid)) + tuple(grid)
 
 
+def apply_design(dtype, n, shared_weights, nd=2, degree=1):
+    """The kernel a CUDA ``apply_stencil`` call of ``n`` fields of
+    ``dtype`` on an ``nd``-D grid at ``degree`` runs, from its shape
+    alone, and its chunk width:
+
+    * ("tile", NB): n >= 2 real fields with shared weights at the
+      geometries of ``TILE_APPLY_GEOMETRIES`` run
+      ``csrc/stencil_apply_tile.cu`` (the plane tile of
+      ``csrc/cheb_tile.cuh``, one pass) in chunks of NB fields, the
+      smoothers' widths (``_tile_width``; a ragged last chunk is
+      masked): each weight is read once for the chunk, where the
+      per-entry kernel reads the whole set once per field.  On one
+      H100, float32 device time against the per-entry kernel (PERF.md,
+      ``profile_slice.py apply``): 63 x 257^2 0.024 / 0.032 ms, 15 x
+      65^3 at degree 1 0.120 / 0.163, degree 2 0.250 / 0.905, 15 x 73^3
+      at degree 3 0.71 / 2.84-2.92; chunks of 8 instead of 16 took
+      0.027, 0.283 and 0.79-0.82 ms, and of 16 at 3-D degree 1 0.120 (a
+      tie; 8 keeps fewer registers);
+    * ("per_entry", 0): complex fields, weights per batch entry, one
+      field, and the 2-D degrees 2-4 (no path applies them to a batch)
+      run ``csrc/stencil_apply.cu``, one thread per node and field: a
+      single field reads each weight once either way, and that kernel
+      reached 69-80% of its bound there (1 x 769^2 and 1 x 97^3 f64,
+      PERF.md)."""
+    if (dtype.is_complex or n <= 1 or not shared_weights
+            or (nd, degree) not in TILE_APPLY_GEOMETRIES):
+        return "per_entry", 0
+    return "tile", _tile_width(dtype, nd, degree)
+
+
 def _apply_cuda(w, x, degree, nd):
     grid = _cuda_grid(w.shape, x, degree, nd, "apply_stencil")
     if w.dtype != x.dtype or w.device != x.device:
@@ -340,11 +382,18 @@ def _apply_cuda(w, x, degree, nd):
     xc = x.expand(bshape + grid).contiguous()
     y = torch.empty(bshape + grid, dtype=x.dtype, device=x.device)
     lib = kernels.library()
-    code = lib.stencil_apply(
-        kernels.DTYPE_CODES[x.dtype], wc.data_ptr(), w_bs, xc.data_ptr(),
-        y.data_ptr(), max(n, 1), *_zyx(grid), nd, degree,
-        kernels.stream_ptr(x.device))
-    kernels.check(code, "stencil_apply")
+    tail = (y.data_ptr(), max(n, 1), *_zyx(grid), nd, degree,
+            kernels.stream_ptr(x.device))
+    design, nb = apply_design(x.dtype, n, w_bs == 0, nd, degree)
+    if design == "tile":
+        code = lib.stencil_apply_tile(kernels.DTYPE_CODES[x.dtype], nb,
+                                      wc.data_ptr(), xc.data_ptr(), *tail)
+        kernels.check(code, "stencil_apply_tile")
+        launch_counts[_key("stencil_apply_tile", degree, nd)] += 1
+    else:
+        code = lib.stencil_apply(kernels.DTYPE_CODES[x.dtype], wc.data_ptr(),
+                                 w_bs, xc.data_ptr(), *tail)
+        kernels.check(code, "stencil_apply")
     launch_counts[_key("stencil_apply", degree, nd)] += 1
     return y
 
@@ -354,7 +403,8 @@ def apply_stencil(w, x, degree, nd=2):
 
     w: (K, *grid) or (n, K, *grid); x: (*grid) or (n, *grid) -- the batch
     dims broadcast (shared weights across a time batch are fine).  A CUDA
-    tensor with a scalar stencil runs kernel K1 (2-D) or K6 (3-D, real);
+    tensor with a scalar stencil runs kernel K1 (2-D) or K6 (3-D, real):
+    the plane tile or the per-entry kernel, as ``apply_design`` picks;
     a CPU tensor runs ``_apply_plain``.  Vector stencils
     (w (..., K, *nodes, dim, dim), x (..., *nodes, dim)) have no TPU kernel
     in the JAX package and so none here: they run ``_apply_plain`` on
@@ -547,6 +597,14 @@ TILE_WIDTHS = {torch.float32: 16, torch.float64: 8}
 RING_STAGES = 16
 
 
+def _tile_width(dtype, nd, degree):
+    """The plane tile's chunk width for real fields of ``dtype``
+    (``TILE_WIDTHS``; 8 for float32 3-D at degree 1)."""
+    if dtype == torch.float32 and nd == 3 and degree == 1:
+        return 8
+    return TILE_WIDTHS[dtype]
+
+
 def cheb_design(dtype, n, shared_weights, nd=2, degree=1, weight_dtype=None):
     """The kernel a CUDA smoothing call of ``n`` fields of ``dtype`` on an
     ``nd``-D grid at ``degree``, with planes stored in ``weight_dtype``
@@ -572,9 +630,7 @@ def cheb_design(dtype, n, shared_weights, nd=2, degree=1, weight_dtype=None):
         if (2 * degree + 1) ** nd < RING_STAGES:
             return "per_entry", 0
         return "ring", 1
-    if dtype == torch.float32 and nd == 3 and degree == 1:
-        return "tile", 8
-    return "tile", TILE_WIDTHS[dtype]
+    return "tile", _tile_width(dtype, nd, degree)
 
 
 def _cheb_cuda(w, dinv, b, x0, steps, theta, delta, degree, want_residual,

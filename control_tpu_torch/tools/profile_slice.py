@@ -38,7 +38,9 @@ in turns within one call on one card):
         f64), traced whole, with K1's and K2's device time (2-D, real);
         ``profile stationary_hex_q3`` (the exact pair on hex Q3 32^3,
         f64) and ``profile heat3d_q3`` (heat3d on hex Q3 24^3 x 16, f32,
-        ParaDiag), with K6's and K5 real's device time at degree 3.
+        ParaDiag), with K6's and K5 real's device time at degree 3 (K1
+        and K6 count the per-entry kernel and the plane tile, and
+        ``k1_tile_device_ms``, ``k6_tile_device_ms`` the tile alone).
 
     python3 <this checkout>/control_tpu_torch/tools/profile_slice.py vector
         K4 and K5v at the shapes of their paths (the velocity mass solves,
@@ -84,6 +86,21 @@ in turns within one call on one card):
         call, steps + 1 when no record is lost) and event time (host
         included); like ``vector``, it times the kernels of whichever
         checkout it is run from: one JSON line.
+
+    python3 <this checkout>/control_tpu_torch/tools/profile_slice.py apply
+        K1 and K6 at their paths' shared-weight batches (``APPLY_SHAPES``:
+        63 x 257^2, 15 x 65^3 at degree 1 and 2, 15 and 16 x 73^3 at
+        degree 3, float32): the kernel ``apply_stencil`` runs there (the
+        plane tile, or the per-entry kernel where ``apply_design`` picks
+        it) against the per-entry kernel called at its C entry point
+        (``chip_smoke.entry_apply``), in turns (wrapper, per-entry,
+        per-entry, wrapper): device time (the ``stencil`` kernels in a
+        torch.profiler trace, with their count a call), event time of
+        both kernels called at their C entry points (in turns) and of
+        the wrapper (at 257^2 host time), the bound, the design floor
+        and both kernels' errors against the plain version; like
+        ``vector``, it times the kernels of whichever checkout it is run
+        from: one JSON line.
 
     python3 control_tpu_torch/tools/profile_slice.py history stokes \
             float32|float64 [n n_t [iterations]]
@@ -380,6 +397,15 @@ def profile(name):
     def pair_smoother(e, nd):
         return tile(e, nd, 2)
 
+    def apply_tile(e, nd):
+        # K1 / K6 on the plane tile: stencil_tile_apply<nd, D, NB, V>
+        return re.search(rf"stencil_tile_apply<{nd}, \d+, \d+, ", e.name)
+
+    def applied(e, nd):
+        # K1 / K6: the per-entry kernel and the plane tile
+        return (real(e, ("stencil_apply_kernel",), nd)
+                or apply_tile(e, nd))
+
     device_ms = ms(kernels)
     k3_ms = ms(e for e in kernels if complex_smoother(e, 2))
     k5c_ms = ms(e for e in kernels if complex_smoother(e, 3))
@@ -399,11 +425,13 @@ def profile(name):
             "k5v_device_ms": ms(e for e in kernels
                                 if any(k in e.name for k in K5V_NAMES)),
             "mg_transfer_device_ms": ms(e for e in kernels if in_range(e)),
-            "k1_device_ms": ms(e for e in kernels
-                               if real(e, ("stencil_apply_kernel",))),
+            "k1_device_ms": ms(e for e in kernels if applied(e, 2)),
+            "k1_tile_device_ms": ms(e for e in kernels
+                                    if apply_tile(e, 2)),
             "k2_device_ms": ms(e for e in kernels if real_smoother(e, 2)),
-            "k6_device_ms": ms(e for e in kernels
-                               if real(e, ("stencil_apply_kernel",), 3)),
+            "k6_device_ms": ms(e for e in kernels if applied(e, 3)),
+            "k6_tile_device_ms": ms(e for e in kernels
+                                    if apply_tile(e, 3)),
             "k5_real_device_ms": ms(e for e in kernels
                                     if real_smoother(e, 3)),
             "k3_device_ms": k3_ms, "k5_complex_device_ms": k5c_ms,
@@ -879,9 +907,10 @@ RING_STORAGE = (("float64", None), ("float64", "float32"),
                 ("float32", None), ("float32", "bfloat16"))
 
 
-def _cheb_device(fn, calls):
-    """Device milliseconds and kernel count a call of ``fn``: the
-    ``cheb`` kernels in a torch.profiler trace of ``calls`` calls."""
+def _cheb_device(fn, calls, tag="cheb"):
+    """Device milliseconds and kernel count a call of ``fn``: the kernels
+    whose name holds ``tag`` in a torch.profiler trace of ``calls``
+    calls."""
     from torch.profiler import profile as tprofile, ProfilerActivity
     fn()
     torch.cuda.synchronize()
@@ -891,7 +920,7 @@ def _cheb_device(fn, calls):
         torch.cuda.synchronize()
     ks = [e for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA
-          and "cheb" in e.name]
+          and tag in e.name]
     return (sum(e.time_range.elapsed_us() for e in ks) / 1e3 / calls,
             len(ks) / calls)
 
@@ -953,6 +982,72 @@ def ring():
     return {"ring": out}
 
 
+# K1 and K6 on their paths' shared-weight batches: name -> (grid, n,
+# degree, dtype); the ParaDiag factor's applies and the stacked actions
+APPLY_SHAPES = {
+    "K1 flagship": ((257, 257), 63, 1, "float32"),
+    "K6 heat3d": ((65,) * 3, 15, 1, "float32"),
+    "K6 heat3d_q2": ((65,) * 3, 15, 2, "float32"),
+    "K6 heat3d_q3": ((73,) * 3, 15, 3, "float32"),
+    "K6 heat3d_q3, 16 fields": ((73,) * 3, 16, 3, "float32")}
+
+
+def apply(calls=20):
+    """The ``apply`` subcommand (module docstring)."""
+    from control_tpu_torch.ops import stencil as st
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    out = {}
+    for name, (grid, n, degree, dtype) in APPLY_SHAPES.items():
+        nd = len(grid)
+        dt = getattr(torch, dtype)
+        w = chip_smoke.make_stencil_on_card(gen, 1, grid, False, degree,
+                                            dev, dt)[0][0]
+        x = torch.randn((n,) + grid, generator=gen, dtype=dt, device=dev)
+
+        def wrapper():
+            return st.apply_stencil(w, x, degree, nd=nd)
+
+        def per_entry():
+            return chip_smoke.entry_apply(w, x, degree, nd)
+
+        design, width = st.apply_design(dt, n, True, nd, degree)
+
+        def at_entry():
+            return chip_smoke.entry_apply(w, x, degree, nd, width)
+
+        got, pe, ref = wrapper(), per_entry(), st._apply_plain(w, x, degree,
+                                                               nd=nd)
+        d = [_cheb_device(f, calls, "stencil")
+             for f in (wrapper, per_entry, per_entry, wrapper)]
+        e = [chip_smoke.cuda_ms(f, calls)
+             for f in (at_entry, per_entry, per_entry, at_entry)]
+        bound_ms, bound_by = chip_smoke.bound(
+            chip_smoke.nbytes(w, x, x),
+            chip_smoke.stencil_flops(w.shape[0], x, 1), dtype)
+        row = {"shape": [n, *grid], "degree": degree, "dtype": dtype,
+               "design": design, "batch_width": width,
+               "device_ms": [d[0][0], d[3][0]],
+               "per_entry_device_ms": [d[1][0], d[2][0]],
+               "kernels_a_call": [d[0][1], d[1][1]],
+               "entry_event_ms": [e[0], e[3]],
+               "per_entry_event_ms": [e[1], e[2]],
+               "wrapper_event_ms": chip_smoke.cuda_ms(wrapper, calls),
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "design_floor_ms": max(bound_ms, chip_smoke.design_floor(
+                   w, n, 1, max(width, 1))),
+               "max_rel_err": float((got - ref).abs().max()
+                                    / ref.abs().max()),
+               "per_entry_max_rel_err": float((pe - ref).abs().max()
+                                              / ref.abs().max())}
+        print(name, json.dumps(row), file=sys.stderr, flush=True)
+        out[name] = row
+        del w, x, got, pe, ref
+        torch.cuda.empty_cache()
+    return {"apply": out}
+
+
 def main(argv):
     on_cpu = argv[:1] == ["history"] and argv[-1:] == ["cpu"]
     if on_cpu:
@@ -972,6 +1067,8 @@ def main(argv):
         out = real(argv[1:])
     elif argv == ["ring"]:
         out = ring()
+    elif argv == ["apply"]:
+        out = apply()
     elif argv[:1] == ["profile"] and len(argv) == 2 and (
             argv[1] in SLICES or argv[1] in NARROW
             or argv[1] in STOKES_SLICES or argv[1] in STATIONARY_SLICES):
